@@ -16,13 +16,30 @@ Phases, in order; any failure exits non-zero:
      three requests (sparkv, cachegen, local_prefill), 8 new tokens each;
   4. path B: the same width at 4 layers with per-chunk bit-widths
      (alloc_schedule="attention"), one cachegen request, which takes the
-     mixed-bitwidth kernel.
+     mixed-bitwidth kernel;
+  5. path C: sparse prefill attention at full width: layer 0's q/k/v of
+     path A's weights for a seeded 8192-token sequence through
+     kernels/block_sparse_attn/ops.sparse_prefill_attention (one
+     block-sparse launch), against the plain version on the same block
+     lists; then the full causal list against layers.flash_attention;
+  6. path D: decode attention over path A's cachegen cache, one
+     kernels/decode_attn/ops.decode_attention call per layer (36 calls,
+     two kernel launches each), each against the plain version and
+     layers.flash_attention; then one long cache (32768 positions,
+     kv_len 32000) in bf16 and fp32.
+
+Phase 2 also holds the attention kernels to their plain versions at the
+shapes of tests/test_kernels.py in fp32 (atol 2e-5) and bf16 (atol 2e-2,
+compared in fp32), each scaled by the reference's largest magnitude where
+that is under 1, and paths C and D time them at their shapes beside
+their plain versions and the one PyTorch call that computes the same
+function (scaled_dot_product_attention, timed only).
 
 The line before the last is a JSON object naming every kernel with its
 launches on the paths, its error against the plain version, its time,
-the plain version's time and its bound; the last line is
-{"ok": true, "device": {...}}. Without a card, or outside a checkout of
-the repository, it exits non-zero and prints no result.
+the plain version's time, the library call's time and its bound; the
+last line is {"ok": true, "device": {...}}. Without a card, or outside a
+checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -43,6 +60,9 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}   # attention, as in
+                                             # tests/test_kernels.py
 
 KERNELS = {
     "kv_dequant": {
@@ -51,6 +71,12 @@ KERNELS = {
     "kv_dequant_mixed": {
         "route": "cuda", "source": "src/repro_torch/csrc/kv_dequant.cu",
         "replaces": "src/repro/kernels/kv_dequant/kernel.py:46"},
+    "block_sparse_attention": {
+        "route": "cuda", "source": "src/repro_torch/csrc/block_sparse_attn.cu",
+        "replaces": "src/repro/kernels/block_sparse_attn/kernel.py:82"},
+    "decode_attention": {
+        "route": "cuda", "source": "src/repro_torch/csrc/decode_attn.cu",
+        "replaces": "src/repro/kernels/decode_attn/kernel.py:65"},
 }
 SOURCES = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
                   for k in KERNELS.values()})
@@ -110,6 +136,15 @@ def time_ms(fn, flush, n=50):
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def _perf(err, ms, plain_ms, library_ms, nbytes, ops, peak):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
 
 
 def kernel_phase(device):
@@ -183,17 +218,330 @@ def kernel_phase(device):
             ops = 2 * n * width + n * g
         ms = time_ms(kern, flush)
         plain_ms = time_ms(plain, flush)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOPS * 1e3
-        perf[name] = {
-            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+        perf[name] = _perf(err[name], ms, plain_ms, None, nbytes, ops,
+                           FP32_FLOPS)
         print(f"  {name:17s} {n}x{width} fp32: kernel {ms:.6f} ms, plain "
-              f"{plain_ms:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms "
+              f"{plain_ms:.6f} ms, bound {perf[name]['bound_ms']:.6f} ms "
               f"({nbytes} B)")
     return perf
+
+
+def _max_err(a, b):
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def _tolerance(ref, dtype_name):
+    """The attention tolerance, scaled down by the reference's largest
+    magnitude where that is under 1: outputs that average many random
+    values lie near 0, where the absolute tolerance would be loose."""
+    top = float(ref.float().abs().max()) if ref.numel() else 0.0
+    return ATOL[dtype_name] * min(1.0, top)
+
+
+def _compare_close(err, name, out, ref, dtype_name, label):
+    """Check |out - ref| against the attention tolerance and record it in
+    `err` (the errors against the plain versions)."""
+    import torch
+    torch.cuda.synchronize()
+    e, tol = _max_err(out, ref), _tolerance(ref, dtype_name)
+    ok = bool(torch.isfinite(out.float()).all()) and e <= tol
+    err[name] = max(err.get(name, 0.0), e)
+    print(f"  {name:22s} {label:40s} max_abs_err={e:.3e} "
+          f"(atol {tol:.3e}) {'ok' if ok else 'FAILED'}")
+    check(ok, f"{name} beyond tolerance at {label}")
+
+
+def attention_phase(device):
+    """The two attention kernels against their plain versions at the
+    shapes of tests/test_kernels.py, in fp32 and bf16."""
+    import torch
+    from repro_torch.kernels.block_sparse_attn import kernel as BK
+    from repro_torch.kernels.block_sparse_attn.ops import block_lists
+    from repro_torch.kernels.decode_attn import kernel as DK
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    err = {}
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    # (kv rows, kv_group, s, d, causal, mass): test_kernels.py:30-35,
+    # its GQA cases :51-63, non-causal lists as in :239-253
+    for bh_kv, g, sl, d, causal, mass in (
+            (4, 1, 512, 64, True, 0.9), (2, 1, 1024, 128, True, 0.9),
+            (2, 1, 256, 128, True, 0.9), (6, 1, 384, 64, True, 0.9),
+            (2, 2, 256, 64, True, 0.95), (2, 4, 256, 64, True, 0.95),
+            (2, 8, 256, 64, True, 0.95), (2, 1, 512, 64, False, 0.85),
+            (3, 1, 384, 128, False, 0.98)):
+        for dn, dt in dtypes.items():
+            q = torch.randn((bh_kv * g, sl, d), generator=gen, device=device)
+            k = torch.randn((bh_kv, sl, d), generator=gen, device=device)
+            v = torch.randn((bh_kv, sl, d), generator=gen, device=device)
+            q, k, v = q.to(dt), k.to(dt), v.to(dt)
+            idx, cnt = block_lists(q, k, g, mass=mass, q_block=128,
+                                   kv_block=128, causal=causal)
+            out = BK.block_sparse_attention(q, k, v, idx, cnt,
+                                            causal=causal, kv_group=g)
+            plain = BK.block_sparse_attention_plain(q, k, v, idx, cnt,
+                                                    causal=causal,
+                                                    kv_group=g)
+            _compare_close(err, "block_sparse_attention", out, plain, dn,
+                           f"{bh_kv * g}x{sl}x{d} g{g} "
+                           f"{'causal' if causal else 'full'} m{mass} {dn}")
+    # the full causal list (idx = arange, cnt = qb + 1) is dense causal
+    # attention (test_kernels.py:66-82)
+    for bh_kv, g, sl, d in ((2, 1, 256, 64), (2, 4, 1024, 128)):
+        for dn, dt in dtypes.items():
+            q = torch.randn((bh_kv * g, sl, d), generator=gen,
+                            device=device).to(dt)
+            k = torch.randn((bh_kv, sl, d), generator=gen,
+                            device=device).to(dt)
+            v = torch.randn((bh_kv, sl, d), generator=gen,
+                            device=device).to(dt)
+            idx, cnt = _full_causal_lists(bh_kv * g, sl // 128, device)
+            out = BK.block_sparse_attention(q, k, v, idx, cnt, kv_group=g)
+            kr = k.float().repeat_interleave(g, 0)
+            vr = v.float().repeat_interleave(g, 0)
+            sc = torch.einsum("bqd,bkd->bqk", q.float(), kr) * d ** -0.5
+            tril = torch.ones(sl, sl, dtype=torch.bool, device=device).tril()
+            dense = torch.einsum("bqk,bkd->bqd",
+                                 torch.softmax(sc.masked_fill(~tril,
+                                                              -torch.inf),
+                                               -1), vr)
+            _compare_close({}, "block_sparse_attention", out, dense, dn,
+                           f"{bh_kv * g}x{sl}x{d} g{g} full list vs dense "
+                           f"{dn}")
+    # decode: test_kernels.py:85-90, kv_len 0, a ragged kv_len at Qwen3-4B
+    # heads
+    for b, hq, hkv, skv, d, klen, blk in (
+            (2, 8, 2, 512, 64, 400, 256), (1, 4, 4, 1024, 128, 1024, 256),
+            (3, 16, 2, 768, 128, 700, 128), (2, 8, 1, 512, 256, 333, 512),
+            (2, 8, 2, 512, 64, 0, 256), (1, 32, 8, 2048, 128, 1999, 256),
+            (1, 32, 8, 300, 128, 300, 256)):
+        for dn, dt in dtypes.items():
+            q = torch.randn((b, hq, d), generator=gen, device=device).to(dt)
+            k = torch.randn((b, skv, hkv, d), generator=gen,
+                            device=device).to(dt)
+            v = torch.randn((b, skv, hkv, d), generator=gen,
+                            device=device).to(dt)
+            out = DK.decode_attention(q, k, v, klen, kv_block=blk)
+            plain = DK.decode_attention_plain(q, k, v, klen, kv_block=blk)
+            _compare_close(err, "decode_attention", out, plain, dn,
+                           f"b{b} {hq}/{hkv} skv{skv} d{d} len{klen} "
+                           f"blk{blk} {dn}")
+            if klen == 0:
+                check(not out.any(), "decode_attention: kv_len 0 not zero")
+    return err
+
+
+def _full_causal_lists(bh, n_qb, device):
+    import torch
+    idx = torch.arange(n_qb, dtype=torch.int32, device=device)
+    idx = idx.expand(bh, n_qb, n_qb).contiguous()
+    cnt = torch.arange(1, n_qb + 1, dtype=torch.int32, device=device)
+    return idx, cnt.expand(bh, n_qb).contiguous()
+
+
+def _causal_pairs(idx, cnt, q_block, kv_block):
+    """The (query, key) pairs that the listed tiles leave unmasked under
+    the causal mask: the products' work, counted exactly (a diagonal tile
+    holds q_block * (q_block + 1) / 2 of them, a tile above it none)."""
+    import torch
+    dev = idx.device
+    listed = torch.arange(idx.shape[-1], device=dev) < cnt[..., None]
+    qb = torch.arange(idx.shape[1], device=dev)[None, :, None]
+    off = (qb * q_block - idx.long() * kv_block)[listed]
+    off, n = torch.unique(off, return_counts=True)
+    rows = torch.arange(1, q_block + 1, device=dev)
+    per_tile = (off[:, None] + rows).clamp(0, kv_block).sum(1)
+    return int((per_tile * n).sum())
+
+
+def path_c(cfg, params, err, device, *, n_tokens=8192, seed=0):
+    """Sparse prefill attention at full width on layer 0's q/k/v; returns
+    (launches during the path, the kernel's perf entry)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import SparKVConfig
+    from repro_torch.kernels.block_sparse_attn import kernel as BK
+    from repro_torch.kernels.block_sparse_attn import ops as BO
+    from repro_torch.kernels.block_sparse_attn.ref import block_mask_dense
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import layer_params
+
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          size=(1, n_tokens)), device=device)
+    bp = layer_params(params["blocks"], 0)
+    h = L.apply_norm(cfg, params["emb"][tokens], bp["attn_norm"])
+    q, k, v = L.attention_qkv(cfg, bp["attn"], h,
+                              torch.arange(n_tokens, device=device))
+    hq, hkv, d = q.shape[2], k.shape[2], q.shape[3]
+    g, qb = hq // hkv, 128
+    n_qb = n_tokens // qb
+    mass = SparKVConfig().attention_mass
+    print(f"[path C] layer 0 q {tuple(q.shape)} k/v {tuple(k.shape)} "
+          f"{q.dtype}; {n_qb} q-blocks, mass {mass}", flush=True)
+
+    # observe the lists that sparse_prefill_attention hands the kernel,
+    # without changing the call
+    seen = {}
+    launch = BK.block_sparse_attention
+
+    def launch_and_keep(*args, **kw):
+        seen["args"] = args
+        return launch(*args, **kw)
+
+    BK.reset_launches()
+    BK.block_sparse_attention = launch_and_keep
+    try:
+        t0 = time.perf_counter()
+        out, cnt = BO.sparse_prefill_attention(q, k, v, mass=mass)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        BK.block_sparse_attention = launch
+    launches = BK.LAUNCHES["block_sparse_attention"]
+    check(launches == 1, f"path C: {launches} block-sparse launches, not 1")
+    qf, kf, vf, idx, cnt2 = seen["args"]
+    tiles = int(cnt.sum())
+    causal_tiles = hq * n_qb * (n_qb + 1) // 2
+    print(f"[path C] sparse_prefill_attention {wall:.3f} s (masks + "
+          f"kernel, first call), active blocks {tiles} of {causal_tiles} "
+          f"causal ({tiles / causal_tiles:.4f})", flush=True)
+    plain = BK.block_sparse_attention_plain(qf, kf, vf, idx, cnt2,
+                                            kv_group=g)
+    _compare_close(err, "block_sparse_attention",
+                   out.transpose(1, 2).reshape(hq, n_tokens, d), plain,
+                   "bfloat16", "path C sparse vs plain")
+
+    full_idx, full_cnt = _full_causal_lists(hq, n_qb, device)
+    full = BK.block_sparse_attention(qf, kf, vf, full_idx, full_cnt,
+                                     kv_group=g)
+    flash = L.flash_attention(q, k, v, causal=True)
+    _compare_close({}, "block_sparse_attention", full,
+                   BO.heads_first(flash), "bfloat16",
+                   "path C full list vs flash_attention")
+    del full, flash, plain
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    ms = time_ms(lambda: BK.block_sparse_attention(qf, kf, vf, idx, cnt2,
+                                                   kv_group=g), flush)
+    plain_ms = time_ms(lambda: BK.block_sparse_attention_plain(
+        qf, kf, vf, idx, cnt2, kv_group=g), flush)
+    q4, k4, v4 = (x.view(1, -1, n_tokens, d) for x in (qf, kf, vf))
+    tok = block_mask_dense(idx, cnt2, n_qb, n_qb)
+    tok = tok.repeat_interleave(qb, 1).repeat_interleave(qb, 2)
+    tok &= torch.ones(n_tokens, n_tokens, dtype=torch.bool,
+                      device=device).tril()
+    mask = tok.view(1, hq, n_tokens, n_tokens)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, enable_gqa=True), flush)
+    del tok, mask
+    dense_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), flush)
+    full_ms = time_ms(lambda: BK.block_sparse_attention(
+        qf, kf, vf, full_idx, full_cnt, kv_group=g), flush)
+    # bound: q, k, v, o and the lists moved once; 4 * d operations (QK^T
+    # and PV) for each (query, key) pair the causal mask leaves
+    nbytes = ((qf.numel() + kf.numel() + vf.numel() + qf.numel()) * 2
+              + (idx.numel() + cnt2.numel()) * 4)
+    pairs = _causal_pairs(idx, cnt2, qb, qb)
+    ops = 4 * d * pairs
+    perf = _perf(err["block_sparse_attention"], ms, plain_ms, lib_ms,
+                 nbytes, ops, BF16_FLOPS)
+    print(f"[path C] block_sparse_attention {tiles} tiles, {pairs} causal "
+          f"pairs: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, SDPA with "
+          f"the block mask {lib_ms:.6f} ms, bound {perf['bound_ms']:.6f} ms "
+          f"({perf['bound_by']}, {ops:.4g} operations, {nbytes} B)")
+    full_ops = 4 * d * _causal_pairs(full_idx, full_cnt, qb, qb)
+    print(f"[path C] dense causal SDPA (is_causal=True): {dense_ms:.6f} ms; "
+          f"kernel over the full causal list ({causal_tiles} tiles): "
+          f"{full_ms:.6f} ms, bound {full_ops / BF16_FLOPS * 1e3:.6f} ms "
+          f"({full_ops:.4g} operations)", flush=True)
+    return launches, perf
+
+
+def path_d(cache, hq, err, device, *, seed=0):
+    """Decode attention over path A's assembled cache, one call per
+    layer; returns (launches during the path, the kernel's perf entry)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn import ops as DO
+    from repro_torch.models import layers as L
+
+    ck, cv = cache["k"], cache["v"]
+    n_l, b, skv, hkv, d = ck.shape
+    kv_len = skv
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qs = torch.randn((n_l, b, hq, d), generator=gen,
+                     device=device).to(ck.dtype)
+    print(f"[path D] cache k/v {tuple(ck.shape)} {ck.dtype}, q "
+          f"{tuple(qs.shape[1:])}, kv_len {kv_len}", flush=True)
+    DK.reset_launches()
+    outs = [DO.decode_attention(qs[i], ck[i], cv[i], kv_len)
+            for i in range(n_l)]
+    torch.cuda.synchronize()
+    launches = DK.LAUNCHES["decode_attention"]
+    check(launches == 2 * n_l,
+          f"path D: {launches} decode kernel launches, not 2 x {n_l}")
+    e_plain = e_flash = 0.0
+    ok = True
+    for i, out in enumerate(outs):
+        plain = DK.decode_attention_plain(qs[i], ck[i], cv[i], kv_len)
+        flash = L.flash_attention(qs[i][:, None], ck[i], cv[i],
+                                  causal=False)[:, 0]
+        ep, ef = _max_err(out, plain), _max_err(out, flash)
+        ok &= (ep <= _tolerance(plain, "bfloat16")
+               and ef <= _tolerance(flash, "bfloat16"))
+        e_plain, e_flash = max(e_plain, ep), max(e_flash, ef)
+        check(bool(torch.isfinite(out.float()).all()),
+              f"path D: layer {i} not finite")
+    err["decode_attention"] = max(err.get("decode_attention", 0.0), e_plain)
+    print(f"[path D] {n_l} layers: max |err| vs plain {e_plain:.3e}, vs "
+          f"layers.flash_attention {e_flash:.3e} (bf16 atol 2e-2 scaled by "
+          f"each reference's largest magnitude under 1)")
+    check(ok, "path D beyond tolerance")
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+
+    def timings(q, k, v, n):
+        bq, bk, bv = (q.view(b, hq, 1, d), k[:, :n].transpose(1, 2),
+                      v[:, :n].transpose(1, 2))
+        return (time_ms(lambda: DK.decode_attention(q, k, v, n), flush),
+                time_ms(lambda: DK.decode_attention_plain(q, k, v, n),
+                        flush),
+                time_ms(lambda: F.scaled_dot_product_attention(
+                    bq, bk, bv, enable_gqa=True), flush),
+                (2 * n * hkv * d + 2 * b * hq * d) * k.element_size())
+
+    ms, plain_ms, lib_ms, nbytes = timings(qs[0], ck[0], cv[0], kv_len)
+    perf = _perf(err["decode_attention"], ms, plain_ms, lib_ms, nbytes,
+                 4 * b * hq * kv_len * d, BF16_FLOPS)
+    print(f"[path D] decode_attention kv_len {kv_len}: kernel {ms:.6f} ms, "
+          f"plain {plain_ms:.6f} ms, SDPA {lib_ms:.6f} ms, bound "
+          f"{perf['bound_ms']:.6f} ms ({perf['bound_by']}, {nbytes} B)")
+
+    # one long cache: 32768 positions, 32000 valid; in fp32 too, where the
+    # tolerance would catch a dropped or misweighted block
+    long_skv, long_len = 32768, 32000
+    k = torch.randn((b, long_skv, hkv, d), generator=gen, device=device)
+    v = torch.randn((b, long_skv, hkv, d), generator=gen, device=device)
+    q32 = qs[0].float()
+    _compare_close(err, "decode_attention",
+                   DK.decode_attention(q32, k, v, long_len),
+                   DK.decode_attention_plain(q32, k, v, long_len), "float32",
+                   f"long cache skv {long_skv} len {long_len} float32")
+    k, v = k.to(ck.dtype), v.to(ck.dtype)
+    out = DK.decode_attention(qs[0], k, v, long_len)
+    _compare_close(err, "decode_attention", out,
+                   DK.decode_attention_plain(qs[0], k, v, long_len),
+                   "bfloat16", f"long cache skv {long_skv} len {long_len}")
+    lms, lplain, llib, lbytes = timings(qs[0], k, v, long_len)
+    print(f"[path D] decode_attention kv_len {long_len}: kernel "
+          f"{lms:.6f} ms, plain {lplain:.6f} ms, SDPA {llib:.6f} ms, bound "
+          f"{lbytes / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes, {lbytes} B)",
+          flush=True)
+    perf["max_abs_err"] = err["decode_attention"]
+    return launches, perf
 
 
 # ----------------------------------------------------------------------------
@@ -231,14 +579,17 @@ def build_server(cfg, spcfg, device, seed):
 
 
 def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
-               max_new=8):
+               max_new=8, keep=None):
     """Register one context and serve one request per policy; returns the
-    kernels' launches during the path, reset just before it."""
+    kernels' launches during the path, reset just before it. `keep`, a
+    dict, receives the server's params and the cachegen request's cache."""
     from repro_torch.device import sync
     from repro_torch.kernels.kv_dequant import kernel as K
 
     rng = np.random.default_rng(seed)
     srv, seen = build_server(cfg, spcfg, device, seed)
+    if keep is not None:
+        keep["params"] = srv.params
     tokens = rng.integers(0, cfg.vocab_size, size=(1, n_tokens))
     print(f"[{label}] {cfg.name}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff "
@@ -288,6 +639,8 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
                   f"(bound {2 * step_bound + 1e-4:.6f})")
             check(err <= 2 * step_bound + 1e-4,
                   "cachegen cache beyond two quantization steps")
+            if keep is not None:
+                keep["cache"] = cache
         widths = {q.bits for c in seen["res"].engine.streamed_set
                   for q in st.encoded[c][2:]}
         yield policy, res, launched, widths
@@ -337,6 +690,7 @@ def main():
     try:
         print("[kernels] against their plain versions on the card")
         perf = kernel_phase(device)
+        att_err = attention_phase(device)
 
         from repro_torch.configs import SparKVConfig, get_config
         from repro_torch.kernels.kv_dequant import kernel as K
@@ -345,13 +699,14 @@ def main():
 
         # path A: full width and depth, uniform 5-bit chunks
         spcfg = SparKVConfig(chunk_tokens=1024)
+        kept = {}
         for policy, res, launched, widths in serve_path(
                 "path A", cfg, spcfg, 2048,
-                ("sparkv", "cachegen", "local_prefill"), device):
+                ("sparkv", "cachegen", "local_prefill"), device, keep=kept):
             check(launched["kv_dequant"] == 2 * res.n_streamed,
                   f"{policy}: kv_dequant launches {launched} != 2 x "
                   f"{res.n_streamed} streamed chunks")
-            for k in launches:
+            for k in launched:
                 launches[k] += launched[k]
         check(launches["kv_dequant"] > 0, "path A never launched kv_dequant")
         K.reset_launches()
@@ -366,8 +721,15 @@ def main():
             check(len(widths) > 1, "path B streamed only one width")
             check(launched["kv_dequant_mixed"] >= 1,
                   "path B never launched kv_dequant_mixed")
-            for k in launches:
+            for k in launched:
                 launches[k] += launched[k]
+
+        # path C: sparse prefill attention on path A's weights
+        launches["block_sparse_attention"], perf["block_sparse_attention"] \
+            = path_c(cfg, kept.pop("params"), att_err, device)
+        # path D: decode attention over path A's cachegen cache
+        launches["decode_attention"], perf["decode_attention"] = path_d(
+            kept.pop("cache"), cfg.num_heads, att_err, device)
     except SmokeError as e:
         fail(str(e))
 

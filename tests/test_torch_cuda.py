@@ -11,6 +11,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from repro_torch.configs import SparKVConfig, get_smoke  # noqa: E402
+from repro_torch.kernels.block_sparse_attn import kernel as BK  # noqa: E402
+from repro_torch.kernels.block_sparse_attn.ops import \
+    block_lists  # noqa: E402
+from repro_torch.kernels.decode_attn import kernel as DK  # noqa: E402
 from repro_torch.kernels.kv_dequant import kernel as K  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import SparKVServer  # noqa: E402
@@ -104,3 +108,98 @@ def test_serving_on_card_goes_through_kernels(cuda, sched):
     ck, cv = cpu.assemble(cst, streamed)
     assert _same_bits(gk.cpu(), ck) and _same_bits(gv.cpu(), cv)
     assert _same_bits(cache["k"].cpu(), ck.to(torch.bfloat16))
+
+
+# attention tolerances of tests/test_kernels.py, compared in fp32, scaled
+# down where the reference's largest magnitude is under 1 (long random
+# caches average their values towards 0)
+ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _close(out, ref, dtype):
+    ref = ref.float()
+    tol = ATOL[dtype] * min(1.0, float(ref.abs().max()))
+    return float((out.float() - ref).abs().max()) <= tol
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh_kv,g,s,d,causal,mass", [
+    (4, 1, 512, 64, True, 0.9), (2, 1, 1024, 128, True, 0.9),
+    (2, 2, 256, 64, True, 0.95), (2, 4, 384, 128, True, 0.95),
+    (1, 8, 256, 64, True, 0.95), (2, 1, 512, 64, False, 0.85),
+    (1, 4, 384, 128, False, 0.98)])
+def test_block_sparse_kernel_matches_plain(cuda, bh_kv, g, s, d, causal,
+                                           mass, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s + d + g)
+    q = _randn(gen, (bh_kv * g, s, d), dtype, cuda)
+    k = _randn(gen, (bh_kv, s, d), dtype, cuda)
+    v = _randn(gen, (bh_kv, s, d), dtype, cuda)
+    idx, cnt = block_lists(q, k, g, mass=mass, q_block=128, kv_block=128,
+                           causal=causal)
+    before = BK.LAUNCHES["block_sparse_attention"]
+    out = BK.block_sparse_attention(q, k, v, idx, cnt, causal=causal,
+                                    kv_group=g)
+    assert BK.LAUNCHES["block_sparse_attention"] == before + 1
+    plain = BK.block_sparse_attention_plain(q, k, v, idx, cnt,
+                                            causal=causal, kv_group=g)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert _close(out, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,skv,d,kv_len,blk", [
+    (2, 8, 2, 512, 64, 400, 256), (1, 4, 4, 1024, 128, 1024, 256),
+    (3, 16, 2, 768, 128, 700, 128), (2, 8, 1, 512, 256, 333, 512),
+    (2, 8, 2, 512, 64, 0, 256), (1, 32, 8, 2048, 128, 1999, 256),
+    (1, 32, 8, 96, 128, 61, 256), (2, 8, 8, 300, 32, 1, 64)])
+def test_decode_kernel_matches_plain(cuda, b, hq, hkv, skv, d, kv_len, blk,
+                                     dtype):
+    gen = torch.Generator(device=cuda).manual_seed(skv + kv_len)
+    q = _randn(gen, (b, hq, d), dtype, cuda)
+    k = _randn(gen, (b, skv, hkv, d), dtype, cuda)
+    v = _randn(gen, (b, skv, hkv, d), dtype, cuda)
+    before = DK.LAUNCHES["decode_attention"]
+    out = DK.decode_attention(q, k, v, kv_len, kv_block=blk)
+    # partials and their combination; the combination alone at kv_len 0
+    assert DK.LAUNCHES["decode_attention"] == before + (2 if kv_len else 1)
+    plain = DK.decode_attention_plain(q, k, v, kv_len, kv_block=blk)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    if kv_len == 0:
+        assert not out.any()
+    else:
+        assert _close(out, plain, dtype)
+
+
+def test_attention_wrappers_refuse_what_the_kernels_cannot_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _randn(gen, (2, 256, 64), torch.float32, cuda)
+    idx = torch.zeros((2, 2, 2), dtype=torch.int32, device=cuda)
+    cnt = torch.ones((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):        # sq not a multiple of q_block
+        BK.block_sparse_attention(q[:, :200].contiguous(), q, q, idx, cnt)
+    with pytest.raises(ValueError):        # non-contiguous k
+        BK.block_sparse_attention(q, q.transpose(0, 1).contiguous()
+                                  .transpose(0, 1), q, idx, cnt)
+    with pytest.raises(ValueError):        # a CPU tensor
+        BK.block_sparse_attention(q.cpu(), q.cpu(), q.cpu(), idx.cpu(),
+                                  cnt.cpu())
+    dq = _randn(gen, (1, 8, 64), torch.float32, cuda)
+    dk = _randn(gen, (1, 100, 2, 64), torch.float32, cuda)
+    with pytest.raises(ValueError):        # kv_len > skv
+        DK.decode_attention(dq, dk, dk, 101)
+    with pytest.raises(ValueError):        # non-contiguous k
+        DK.decode_attention(dq, dk[:, ::2], dk[:, ::2], 10)
+    with pytest.raises(ValueError):        # a CPU tensor
+        DK.decode_attention(dq.cpu(), dk.cpu(), dk.cpu(), 10)
+    flat = _randn(gen, (dk.numel() + 1,), torch.float32, cuda)
+    with pytest.raises(ValueError):        # k not 16-byte aligned
+        DK.decode_attention(dq, flat[1:].view(dk.shape), dk, 10)
+    with pytest.raises(ValueError):        # 3 query heads per kv head
+        DK.decode_attention(_randn(gen, (1, 6, 64), torch.float32, cuda),
+                            dk, dk, 10)
