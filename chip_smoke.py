@@ -7,7 +7,7 @@ NVIDIA card and check it.
 Phases, in order; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      and the build of every CUDA kernel (one nvcc per source, in
-     parallel);
+     parallel), with ptxas's registers, shared memory and spills of each;
   2. each kernel against its plain PyTorch version on the card at the
      main path's shapes and at ragged row counts: bit-equal, and timed
      with CUDA events (median of 50 launches, L2 flushed before each);
@@ -24,16 +24,21 @@ Phases, in order; any failure exits non-zero:
      lists; then the full causal list against layers.flash_attention;
   6. path D: decode attention over path A's cachegen cache, one
      kernels/decode_attn/ops.decode_attention call per layer (36 calls,
-     two kernel launches each), each against the plain version and
+     one kernel launch each), each against the plain version and
      layers.flash_attention; then one long cache (32768 positions,
      kv_len 32000) in bf16 and fp32.
 
 Phase 2 also holds the attention kernels to their plain versions at the
 shapes of tests/test_kernels.py in fp32 (atol 2e-5) and bf16 (atol 2e-2,
 compared in fp32), each scaled by the reference's largest magnitude where
-that is under 1, and paths C and D time them at their shapes beside
-their plain versions and the one PyTorch call that computes the same
-function (scaled_dot_product_attention, timed only).
+that is under 1, the bf16 block-sparse kernel also at its tile edges
+(q_block and kv_block 64 and 256, lists with empty rows and entries out
+of range or past the count) and decode at its stage edges. Paths C and D
+time the attention kernels at their shapes beside their plain versions
+and the one PyTorch call that computes the same function
+(scaled_dot_product_attention, timed only), kernel and library in turns
+(kernel, library, library, kernel), and print the achieved rate and
+share of the bound.
 
 The line before the last is a JSON object naming every kernel with its
 launches on the paths, its error against the plain version, its time,
@@ -91,6 +96,38 @@ def check(cond, msg):
         raise SmokeError(msg)
 
 
+def ptxas_summary(report):
+    """One line per kernel of a ptxas -v report: registers, shared memory
+    (static), stack and spills."""
+    import re
+    lines, name, frame = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            try:
+                name = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True, timeout=10).stdout.strip()
+            except (OSError, subprocess.SubprocessError):
+                pass
+            name = re.sub(r"\(anonymous namespace\)::|\(.*", "", name)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = (f"stack {m.group(1)} B, spills {m.group(2)}/"
+                     f"{m.group(3)} B")
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines.append(f"{name}: {m.group(1)} registers, "
+                         f"{smem.group(1) if smem else 0} B static smem, "
+                         f"{frame}")
+            name, frame = None, ""
+    return lines
+
+
 # ----------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------------
@@ -121,6 +158,21 @@ def _dequant_inputs(gen, n, width, group, bits_choices, device):
 def time_ms(fn, flush, n=50):
     """Median device time of `fn` over n launches, each with a cold L2 and
     the stream held busy while the host enqueues it."""
+    return statistics.median(time_samples(fn, flush, n))
+
+
+def time_in_turns(kernel, library, flush, n=50):
+    """Median device times of `kernel` and `library`, taken in turns
+    (kernel, library, library, kernel), n / 2 launches a turn."""
+    a = time_samples(kernel, flush, n // 2)
+    b = time_samples(library, flush, n // 2)
+    b += time_samples(library, flush, n // 2)
+    a += time_samples(kernel, flush, n // 2)
+    return statistics.median(a), statistics.median(b)
+
+
+def time_samples(fn, flush, n):
+    """Device times of `fn` over n launches (see time_ms)."""
     import torch
     for _ in range(3):
         fn()
@@ -135,7 +187,7 @@ def time_ms(fn, flush, n=50):
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    return times
 
 
 def _perf(err, ms, plain_ms, library_ms, nbytes, ops, peak):
@@ -308,20 +360,47 @@ def attention_phase(device):
             _compare_close({}, "block_sparse_attention", out, dense, dn,
                            f"{bh_kv * g}x{sl}x{d} g{g} full list vs dense "
                            f"{dn}")
+    # the bf16 tensor-core kernel at its tile edges: 64 and 128 query rows
+    # a CTA, q_block and kv_block 64 and 256, lists with holes
+    for bh_kv, g, sl, d, qb, kb in ((2, 1, 512, 64, 64, 64),
+                                    (1, 4, 512, 128, 64, 256),
+                                    (1, 8, 512, 64, 256, 64),
+                                    (2, 4, 512, 128, 256, 256)):
+        for causal in (True, False):
+            q, k, v = (torch.randn((n, sl, d), generator=gen,
+                                   device=device).to(torch.bfloat16)
+                       for n in (bh_kv * g, bh_kv, bh_kv))
+            idx, cnt, seen, seen_cnt = lists_with_holes(
+                gen, bh_kv * g, sl // qb, sl // kb, device)
+            out = BK.block_sparse_attention(q, k, v, idx, cnt,
+                                            causal=causal, q_block=qb,
+                                            kv_block=kb, kv_group=g)
+            plain = BK.block_sparse_attention_plain(
+                q, k, v, seen, seen_cnt, causal=causal, q_block=qb,
+                kv_block=kb, kv_group=g)
+            _compare_close(err, "block_sparse_attention", out, plain,
+                           "bfloat16", f"{bh_kv * g}x{sl}x{d} g{g} qb{qb} "
+                           f"kb{kb} {'causal' if causal else 'full'} holes")
+            check(not out[0, :qb].any(),
+                  "block_sparse_attention: a row with cnt 0 is not zero")
     # decode: test_kernels.py:85-90, kv_len 0, a ragged kv_len at Qwen3-4B
-    # heads
+    # heads, the edges of a 64-key stage (kv_len 1, 63, 65)
     for b, hq, hkv, skv, d, klen, blk in (
             (2, 8, 2, 512, 64, 400, 256), (1, 4, 4, 1024, 128, 1024, 256),
             (3, 16, 2, 768, 128, 700, 128), (2, 8, 1, 512, 256, 333, 512),
             (2, 8, 2, 512, 64, 0, 256), (1, 32, 8, 2048, 128, 1999, 256),
-            (1, 32, 8, 300, 128, 300, 256)):
+            (1, 32, 8, 300, 128, 300, 256), (3, 16, 2, 1024, 128, 1, 256),
+            (3, 16, 2, 1024, 128, 63, 256), (3, 16, 2, 1024, 128, 65, 256)):
         for dn, dt in dtypes.items():
             q = torch.randn((b, hq, d), generator=gen, device=device).to(dt)
             k = torch.randn((b, skv, hkv, d), generator=gen,
                             device=device).to(dt)
             v = torch.randn((b, skv, hkv, d), generator=gen,
                             device=device).to(dt)
+            before = DK.LAUNCHES["decode_attention"]
             out = DK.decode_attention(q, k, v, klen, kv_block=blk)
+            check(DK.LAUNCHES["decode_attention"] == before + 1,
+                  "decode_attention: not one launch a call")
             plain = DK.decode_attention_plain(q, k, v, klen, kv_block=blk)
             _compare_close(err, "decode_attention", out, plain, dn,
                            f"b{b} {hq}/{hkv} skv{skv} d{d} len{klen} "
@@ -329,6 +408,22 @@ def attention_phase(device):
             if klen == 0:
                 check(not out.any(), "decode_attention: kv_len 0 not zero")
     return err
+
+
+def lists_with_holes(gen, bh, n_qb, n_kb, device):
+    """Random block lists that also hold entries outside [0, n_kb), a row
+    with cnt 0 (the first) and a count past the list's end (the last);
+    with the lists the kernel walks in them, for the plain version."""
+    import torch
+    from repro_torch.kernels.block_sparse_attn.kernel import listed_blocks
+    nnz = n_kb + 2
+    idx = torch.randint(-1, n_kb + 1, (bh, n_qb, nnz), generator=gen,
+                        device=device, dtype=torch.int32)
+    cnt = torch.randint(0, nnz + 3, (bh, n_qb), generator=gen, device=device,
+                        dtype=torch.int32)
+    cnt[0, 0] = 0
+    cnt[-1, -1] = nnz + 2
+    return (idx, cnt, *listed_blocks(idx, cnt, n_kb))
 
 
 def _full_causal_lists(bh, n_qb, device):
@@ -422,8 +517,6 @@ def path_c(cfg, params, err, device, *, n_tokens=8192, seed=0):
     del full, flash, plain
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    ms = time_ms(lambda: BK.block_sparse_attention(qf, kf, vf, idx, cnt2,
-                                                   kv_group=g), flush)
     plain_ms = time_ms(lambda: BK.block_sparse_attention_plain(
         qf, kf, vf, idx, cnt2, kv_group=g), flush)
     q4, k4, v4 = (x.view(1, -1, n_tokens, d) for x in (qf, kf, vf))
@@ -432,13 +525,16 @@ def path_c(cfg, params, err, device, *, n_tokens=8192, seed=0):
     tok &= torch.ones(n_tokens, n_tokens, dtype=torch.bool,
                       device=device).tril()
     mask = tok.view(1, hq, n_tokens, n_tokens)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask, enable_gqa=True), flush)
+    ms, lib_ms = time_in_turns(
+        lambda: BK.block_sparse_attention(qf, kf, vf, idx, cnt2, kv_group=g),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                               enable_gqa=True), flush)
     del tok, mask
-    dense_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True), flush)
-    full_ms = time_ms(lambda: BK.block_sparse_attention(
-        qf, kf, vf, full_idx, full_cnt, kv_group=g), flush)
+    full_ms, dense_ms = time_in_turns(
+        lambda: BK.block_sparse_attention(qf, kf, vf, full_idx, full_cnt,
+                                          kv_group=g),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                               enable_gqa=True), flush)
     # bound: q, k, v, o and the lists moved once; 4 * d operations (QK^T
     # and PV) for each (query, key) pair the causal mask leaves
     nbytes = ((qf.numel() + kf.numel() + vf.numel() + qf.numel()) * 2
@@ -450,12 +546,16 @@ def path_c(cfg, params, err, device, *, n_tokens=8192, seed=0):
     print(f"[path C] block_sparse_attention {tiles} tiles, {pairs} causal "
           f"pairs: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, SDPA with "
           f"the block mask {lib_ms:.6f} ms, bound {perf['bound_ms']:.6f} ms "
-          f"({perf['bound_by']}, {ops:.4g} operations, {nbytes} B)")
+          f"({perf['bound_by']}, {ops:.4g} operations, {nbytes} B); "
+          f"kernel {ops / ms / 1e9:.1f} TFLOP/s, "
+          f"{perf['bound_ms'] / ms:.1%} of its bound")
     full_ops = 4 * d * _causal_pairs(full_idx, full_cnt, qb, qb)
+    full_bound = full_ops / BF16_FLOPS * 1e3
     print(f"[path C] dense causal SDPA (is_causal=True): {dense_ms:.6f} ms; "
           f"kernel over the full causal list ({causal_tiles} tiles): "
-          f"{full_ms:.6f} ms, bound {full_ops / BF16_FLOPS * 1e3:.6f} ms "
-          f"({full_ops:.4g} operations)", flush=True)
+          f"{full_ms:.6f} ms, bound {full_bound:.6f} ms "
+          f"({full_ops:.4g} operations), {full_ops / full_ms / 1e9:.1f} "
+          f"TFLOP/s, {full_bound / full_ms:.1%} of its bound", flush=True)
     return launches, perf
 
 
@@ -481,8 +581,9 @@ def path_d(cache, hq, err, device, *, seed=0):
             for i in range(n_l)]
     torch.cuda.synchronize()
     launches = DK.LAUNCHES["decode_attention"]
-    check(launches == 2 * n_l,
-          f"path D: {launches} decode kernel launches, not 2 x {n_l}")
+    check(launches == n_l,
+          f"path D: {launches} decode kernel launches, not one for each of "
+          f"{n_l} calls")
     e_plain = e_flash = 0.0
     ok = True
     for i, out in enumerate(outs):
@@ -506,19 +607,27 @@ def path_d(cache, hq, err, device, *, seed=0):
     def timings(q, k, v, n):
         bq, bk, bv = (q.view(b, hq, 1, d), k[:, :n].transpose(1, 2),
                       v[:, :n].transpose(1, 2))
-        return (time_ms(lambda: DK.decode_attention(q, k, v, n), flush),
-                time_ms(lambda: DK.decode_attention_plain(q, k, v, n),
-                        flush),
-                time_ms(lambda: F.scaled_dot_product_attention(
-                    bq, bk, bv, enable_gqa=True), flush),
-                (2 * n * hkv * d + 2 * b * hq * d) * k.element_size())
+        ms, lib_ms = time_in_turns(
+            lambda: DK.decode_attention(q, k, v, n),
+            lambda: F.scaled_dot_product_attention(bq, bk, bv,
+                                                   enable_gqa=True), flush)
+        plain_ms = time_ms(lambda: DK.decode_attention_plain(q, k, v, n),
+                           flush)
+        nbytes = (2 * n * hkv * d + 2 * b * hq * d) * k.element_size()
+        return ms, plain_ms, lib_ms, nbytes
+
+    def rate(nbytes, ms):
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        return (f"{nbytes / ms / 1e9:.3f} TB/s, {bound / ms:.1%} of its "
+                "bound")
 
     ms, plain_ms, lib_ms, nbytes = timings(qs[0], ck[0], cv[0], kv_len)
     perf = _perf(err["decode_attention"], ms, plain_ms, lib_ms, nbytes,
                  4 * b * hq * kv_len * d, BF16_FLOPS)
     print(f"[path D] decode_attention kv_len {kv_len}: kernel {ms:.6f} ms, "
           f"plain {plain_ms:.6f} ms, SDPA {lib_ms:.6f} ms, bound "
-          f"{perf['bound_ms']:.6f} ms ({perf['bound_by']}, {nbytes} B)")
+          f"{perf['bound_ms']:.6f} ms ({perf['bound_by']}, {nbytes} B); "
+          f"kernel {rate(nbytes, ms)}")
 
     # one long cache: 32768 positions, 32000 valid; in fp32 too, where the
     # tolerance would catch a dropped or misweighted block
@@ -538,8 +647,8 @@ def path_d(cache, hq, err, device, *, seed=0):
     lms, lplain, llib, lbytes = timings(qs[0], k, v, long_len)
     print(f"[path D] decode_attention kv_len {long_len}: kernel "
           f"{lms:.6f} ms, plain {lplain:.6f} ms, SDPA {llib:.6f} ms, bound "
-          f"{lbytes / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes, {lbytes} B)",
-          flush=True)
+          f"{lbytes / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes, {lbytes} B); "
+          f"kernel {rate(lbytes, lms)}", flush=True)
     perf["max_abs_err"] = err["decode_attention"]
     return launches, perf
 
@@ -686,6 +795,9 @@ def main():
           f"{time.perf_counter() - t0:.3f} s: "
           + ", ".join(os.path.relpath(str(p), ROOT) for p in libs),
           flush=True)
+    for name in SOURCES:
+        for line in ptxas_summary(_build.ptxas_report(name)):
+            print(f"[ptxas] {line}")
 
     try:
         print("[kernels] against their plain versions on the card")

@@ -3,9 +3,12 @@ load it with ctypes.
 
 Each library is compiled by ``nvcc`` for ``sm_90a`` at first use, into
 ``build/repro_torch/`` at the root of the checkout, under a name keyed by
-a hash of its source and flags: a changed ``.cu`` rebuilds, an unchanged
-one is loaded as built. A missing ``nvcc`` or a failed build raises;
-nothing falls back to another implementation.
+a hash of its source, of every header (``*.cuh``) under ``csrc/`` and of
+the flags: a changed source or header rebuilds, an unchanged one is
+loaded as built. ptxas's report (registers, shared memory and spills of
+each kernel) is kept beside the library (``ptxas_report``). A missing
+``nvcc`` or a failed build raises; nothing falls back to another
+implementation.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -41,10 +44,18 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to for its current source."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to for its current source and
+    headers."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas said when it built ``csrc/<name>.cu`` (``-Xptxas -v``)."""
+    return library_path(name).with_suffix(".ptxas.txt").read_text()
 
 
 def build(name: str) -> Path:
@@ -60,6 +71,7 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, out)          # atomic: concurrent builds agree
     return out
 

@@ -3,7 +3,11 @@ version.
 
 The kernel (``csrc/block_sparse_attn.cu``) replaces the Pallas kernel of
 ``repro/kernels/block_sparse_attn/kernel.py``. ``block_sparse_attention``
-launches it on CUDA tensors; each launch adds one to ``LAUNCHES``.
+launches it on CUDA tensors; each launch adds one to ``LAUNCHES``. The
+source holds one kernel for each dtype, and the launch dispatches on it:
+bf16 runs on the tensor cores (``mma.sync``, 64 or 128 query rows a
+CTA), fp32 on the CUDA cores, whose fp32 products the fp32 tolerance
+needs. Neither stands in for the other.
 ``block_sparse_attention_plain`` computes what the Pallas kernel computes
 with torch ops: per (head, q-block) the online softmax over the listed kv
 blocks in list order, scores in fp32, p rounded to v's dtype before the
@@ -22,7 +26,7 @@ LAUNCHES = {"block_sparse_attention": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
-_TILE = 64           # query rows per CTA and kv rows per sub-tile
+_TILE = 64           # kv rows per sub-tile; query rows per CTA at least
 
 
 def reset_launches() -> None:
@@ -86,6 +90,21 @@ def block_sparse_attention_plain(q, k, v, block_idx, block_cnt, *,
     return out.reshape(bh, sq, d).to(q.dtype)
 
 
+def listed_blocks(block_idx, block_cnt, n_kb: int):
+    """The lists that the kernel walks in (block_idx, block_cnt): the
+    entries before the count (at most the list's length) that lie in
+    [0, n_kb), in list order, packed to the front with their count. The
+    plain version reads every entry it is given, so it takes these to
+    compute what the kernel computes from lists with such holes."""
+    nnz = block_idx.shape[-1]
+    listed = (torch.arange(nnz, device=block_idx.device)
+              < block_cnt.clamp(max=nnz)[..., None])
+    keep = listed & (block_idx >= 0) & (block_idx < n_kb)
+    order = torch.argsort((~keep).int(), dim=-1, stable=True)
+    idx = torch.gather(block_idx, -1, order).clamp(0, n_kb - 1)
+    return idx, keep.sum(-1, dtype=torch.int32)
+
+
 # ----------------------------------------------------------------------------
 # CUDA launcher
 # ----------------------------------------------------------------------------
@@ -100,7 +119,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.block_sparse_attention_launch.argtypes = [
             p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_float,
-            i, p]
+            i, i, p]
         lib.block_sparse_attention_launch.restype = i
         _LIB = lib
     return _LIB
@@ -136,8 +155,16 @@ def _check(q, k, v, block_idx, block_cnt, q_block, kv_block, kv_group):
     for t in (q, k, v, block_idx, block_cnt):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("all inputs must be contiguous on one device")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must be 16-byte aligned")
     if bh >= 65536:
         raise ValueError(f"bh {bh} exceeds the kernel's grid")
+
+
+def _cta_rows(q_block: int, dtype) -> int:
+    """Query rows a CTA takes: the tensor-core kernel's 8 warps of 16 rows
+    where q_block allows, else 4 warps; the fp32 kernel always 64."""
+    return 128 if dtype == torch.bfloat16 and q_block % 128 == 0 else _TILE
 
 
 def block_sparse_attention(q, k, v, block_idx, block_cnt, *,
@@ -158,7 +185,8 @@ def block_sparse_attention(q, k, v, block_idx, block_cnt, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), block_idx.data_ptr(),
         block_cnt.data_ptr(), out.data_ptr(), bh, sq, skv, d,
         sq // q_block, block_idx.shape[-1], q_block, kv_block, kv_group,
-        int(causal), float(scale), int(q.dtype == torch.bfloat16), stream)
+        int(causal), float(scale), int(q.dtype == torch.bfloat16),
+        _cta_rows(q_block, q.dtype), stream)
     LAUNCHES["block_sparse_attention"] += 1
     if err:
         raise RuntimeError(f"block_sparse_attention launch failed: CUDA "

@@ -2,15 +2,18 @@
 
 The kernel (``csrc/decode_attn.cu``) replaces the Pallas kernel of
 ``repro/kernels/decode_attn/kernel.py``. ``decode_attention`` launches it
-on CUDA tensors: two kernels, the per-block partials and their
-combination (only the combination at ``kv_len`` 0), and each kernel
-launch adds one to ``LAUNCHES``.
-``decode_attention_plain`` computes the same function with torch ops, in
-the same order: per kv block of ``kv_block`` keys, the block's max, p
-rounded to v's dtype before the PV product, and the blocks' fp32
-partials combined at the end. The Pallas kernel carries one running
-softmax over the blocks instead; the two agree to rounding. The CPU path
-takes the plain version (``ops.py``); the card never does.
+on CUDA tensors: one launch a call (``kv_len`` 0 included, which writes
+zeros), and each launch adds one to ``LAUNCHES``. The kernel splits the
+cache its own way, by ``split_plan`` from the card's SM count, into one
+thread block cluster a (batch, kv head) that combines its splits in the
+same launch; ``kv_block`` only sets the plain version's blocks, since the
+split changes nothing but the order of sums.
+``decode_attention_plain`` computes the same function with torch ops:
+per kv block of ``kv_block`` keys, the block's max, p rounded to v's
+dtype before the PV product, and the blocks' fp32 partials combined at
+the end. The Pallas kernel carries one running softmax over the blocks
+instead; the two agree to rounding. The CPU path takes the plain version
+(``ops.py``); the card never does.
 """
 from __future__ import annotations
 
@@ -26,8 +29,9 @@ LAUNCHES = {"decode_attention": 0}
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (32, 64, 128, 256)
 _GROUPS = (1, 2, 4, 8, 16)    # query heads per kv head (a template)
-_THREADS = 256
-_MAX_SMEM = 227 * 1024
+_SPLIT_ROWS = 64       # a split holds a multiple of this many key rows
+_MIN_SPLIT = 256       # keys a split at least, to amortise its combine
+_MAX_SPLITS = 16       # a cluster's CTAs (csrc/decode_attn.cu kMaxCluster)
 
 
 def reset_launches() -> None:
@@ -76,6 +80,34 @@ def decode_attention_plain(q, k, v, kv_len: int, *, kv_block: int = 256,
 # CUDA launcher
 # ----------------------------------------------------------------------------
 
+
+def split_plan(b: int, hkv: int, kv_len: int, n_sm: int) -> tuple[int, int]:
+    """(keys per split, number of splits) for the kernel: at most
+    ``_MAX_SPLITS`` splits of a (batch, kv head), each a whole multiple of
+    ``_SPLIT_ROWS`` keys and about ``_MIN_SPLIT`` keys or more, as many as
+    bring ``b * hkv * n_split`` to two CTAs an SM where kv_len and the
+    cluster allow. The splits tile ``[0, kv_len)``, none empty; kv_len 0
+    gives one empty split."""
+    if kv_len <= 0:
+        return _SPLIT_ROWS, 1
+    rows = -(-kv_len // _SPLIT_ROWS)           # 64-key rows of the cache
+    want = min(_MAX_SPLITS, -(-kv_len // _MIN_SPLIT),
+               -(-2 * n_sm // (b * hkv)))
+    chunk = -(-rows // want) * _SPLIT_ROWS
+    return chunk, -(-kv_len // chunk)
+
+
+_SM_COUNT: dict[int, int] = {}
+
+
+def _sm_count(dev) -> int:
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _SM_COUNT:
+        props = torch.cuda.get_device_properties(i)
+        _SM_COUNT[i] = props.multi_processor_count
+    return _SM_COUNT[i]
+
+
 _LIB = None
 
 
@@ -85,13 +117,13 @@ def _lib():
         lib = _build.load("decode_attn")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_launch.argtypes = [
-            p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+            p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         lib.decode_attention_launch.restype = i
         _LIB = lib
     return _LIB
 
 
-def _check(q, k, v, kv_len, kv_block):
+def _check(q, k, v, kv_len):
     if q.device.type != "cuda":
         raise ValueError(f"kernel needs CUDA tensors, got {q.device}")
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
@@ -115,38 +147,32 @@ def _check(q, k, v, kv_len, kv_block):
             raise ValueError("q, k, v must be 16-byte aligned")
     if not 0 <= kv_len <= skv:
         raise ValueError(f"kv_len {kv_len} outside [0, {skv}]")
-    g = hq // hkv
-    smem = 4 * g * (d + kv_block + 4 * _THREADS)
-    if kv_block <= 0 or smem > _MAX_SMEM:
-        raise ValueError(f"kv_block {kv_block} must be positive and its "
-                         f"scores fit in shared memory")
     if b >= 65536 or hkv >= 65536:
         raise ValueError("inputs too large for the kernel's grid")
 
 
 def decode_attention(q, k, v, kv_len: int, *, kv_block: int = 256,
                      scale: float | None = None):
-    """Launch the CUDA kernels: same contract as
-    ``decode_attention_plain``."""
+    """Launch the CUDA kernel: same contract as
+    ``decode_attention_plain``. ``kv_block`` must be positive; the
+    kernel's split is ``split_plan``'s, which changes only the order of
+    sums."""
     kv_len = int(kv_len)
-    _check(q, k, v, kv_len, kv_block)
-    lib = _lib()
+    if kv_block <= 0:
+        raise ValueError(f"kv_block {kv_block} must be positive")
+    _check(q, k, v, kv_len)
     b, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    chunk, n_split = split_plan(b, hkv, kv_len, _sm_count(q.device))
+    lib = _lib()
     scale = scale if scale is not None else d ** -0.5
-    n_split = -(-kv_len // kv_block)
-    stats = torch.empty((2, b, hq, max(n_split, 1)), dtype=torch.float32,
-                        device=q.device)
-    pacc = torch.empty((b, hq, max(n_split, 1), d), dtype=torch.float32,
-                       device=q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), pacc.data_ptr(), out.data_ptr(), b, skv, hq,
-        hkv, d, kv_len, kv_block, float(scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, skv, hq,
+        hkv, d, kv_len, chunk, n_split, float(scale),
         int(q.dtype == torch.bfloat16), stream)
-    LAUNCHES["decode_attention"] += 2 if n_split else 1
+    LAUNCHES["decode_attention"] += 1
     if err:
         raise RuntimeError(f"decode_attention launch failed: CUDA error "
                            f"{err}")

@@ -222,3 +222,27 @@ def test_wrappers_dispatch_on_device():
     with pytest.raises(ValueError):
         TK.block_sparse_attention(tq, tk, tv, idx, cnt)
     assert TK.LAUNCHES == before
+
+
+def test_listed_blocks_are_what_the_kernel_walks():
+    """listed_blocks keeps the entries before the count that lie inside
+    k/v, in list order; the plain version on them equals the Pallas
+    kernel on lists that hold only those entries."""
+    idx = torch.tensor([[[3, -1, 1, 4, 0], [2, 2, 9, 0, 1]]],
+                       dtype=torch.int32)
+    cnt = torch.tensor([[4, 9]], dtype=torch.int32)
+    got, n = TK.listed_blocks(idx, cnt, 4)
+    assert n.tolist() == [[2, 4]]
+    assert got[0, 0, :2].tolist() == [3, 1]
+    assert got[0, 1, :4].tolist() == [2, 2, 0, 1]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        11, [(1, 256, 64), (1, 512, 64), (1, 512, 64)], "float32")
+    idx = torch.tensor([[[0, 7, 1, 2], [3, -2, 2, 0]]], dtype=torch.int32)
+    cnt = torch.tensor([[3, 4]], dtype=torch.int32)
+    got, n = TK.listed_blocks(idx, cnt, 4)
+    plain = TK.block_sparse_attention_plain(tq, tk, tv, got, n,
+                                            causal=False)
+    jout = JK.block_sparse_attention(
+        jq, jk, jv, jnp.asarray([[[0, 1, 0], [3, 2, 0]]], jnp.int32),
+        jnp.asarray([[2, 3]], jnp.int32), causal=False, interpret=True)
+    _close(jout, plain, 2e-5)

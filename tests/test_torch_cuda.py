@@ -165,8 +165,8 @@ def test_decode_kernel_matches_plain(cuda, b, hq, hkv, skv, d, kv_len, blk,
     v = _randn(gen, (b, skv, hkv, d), dtype, cuda)
     before = DK.LAUNCHES["decode_attention"]
     out = DK.decode_attention(q, k, v, kv_len, kv_block=blk)
-    # partials and their combination; the combination alone at kv_len 0
-    assert DK.LAUNCHES["decode_attention"] == before + (2 if kv_len else 1)
+    # one launch a call: the splits are combined in the same launch
+    assert DK.LAUNCHES["decode_attention"] == before + 1
     plain = DK.decode_attention_plain(q, k, v, kv_len, kv_block=blk)
     torch.cuda.synchronize()
     assert out.dtype == dtype
@@ -174,6 +174,91 @@ def test_decode_kernel_matches_plain(cuda, b, hq, hkv, skv, d, kv_len, blk,
         assert not out.any()
     else:
         assert _close(out, plain, dtype)
+
+
+def _lists_with_holes(gen, bh, n_qb, n_kb, device):
+    """Random lists that also hold entries outside [0, n_kb), rows with
+    cnt 0 and counts past the list's end, and the lists the kernel walks
+    in them."""
+    nnz = n_kb + 2
+    idx = torch.randint(-1, n_kb + 1, (bh, n_qb, nnz), generator=gen,
+                        device=device, dtype=torch.int32)
+    cnt = torch.randint(0, nnz + 3, (bh, n_qb), generator=gen, device=device,
+                        dtype=torch.int32)
+    cnt[0, 0] = 0
+    cnt[-1, -1] = nnz + 2
+    return (idx, cnt, *BK.listed_blocks(idx, cnt, n_kb))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh_kv,g,s,d,q_block,kv_block", [
+    (2, 1, 512, 64, 64, 64), (1, 4, 512, 128, 64, 256),
+    (1, 8, 512, 64, 256, 64), (2, 4, 512, 128, 256, 256),
+    (1, 1, 768, 128, 128, 64), (1, 8, 256, 128, 128, 128)])
+def test_block_sparse_bf16_tensor_cores_at_tile_edges(cuda, bh_kv, g, s, d,
+                                                      q_block, kv_block,
+                                                      causal):
+    """The bf16 tensor-core kernel (64 query rows a CTA where q_block is
+    64, else 128) against the plain version on the lists it reads, with
+    out-of-range entries, empty rows and counts past the list."""
+    gen = torch.Generator(device=cuda).manual_seed(s + d + g + q_block)
+    q = _randn(gen, (bh_kv * g, s, d), torch.bfloat16, cuda)
+    k = _randn(gen, (bh_kv, s, d), torch.bfloat16, cuda)
+    v = _randn(gen, (bh_kv, s, d), torch.bfloat16, cuda)
+    idx, cnt, seen, seen_cnt = _lists_with_holes(
+        gen, bh_kv * g, s // q_block, s // kv_block, cuda)
+    before = BK.LAUNCHES["block_sparse_attention"]
+    out = BK.block_sparse_attention(q, k, v, idx, cnt, causal=causal,
+                                    q_block=q_block, kv_block=kv_block,
+                                    kv_group=g)
+    assert BK.LAUNCHES["block_sparse_attention"] == before + 1
+    plain = BK.block_sparse_attention_plain(q, k, v, seen, seen_cnt,
+                                            causal=causal, q_block=q_block,
+                                            kv_block=kv_block, kv_group=g)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert _close(out, plain, torch.bfloat16)
+    assert not out[0, :q_block].any()          # cnt 0: the row sees no key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,skv,d,kv_len", [
+    (3, 16, 2, 1024, 128, 1), (3, 16, 2, 1024, 128, 63),
+    (3, 16, 2, 1024, 128, 64), (3, 16, 2, 1024, 128, 65),
+    (1, 32, 8, 4096, 128, 4095), (2, 8, 1, 640, 256, 577),
+    (1, 16, 1, 2000, 32, 1999), (4, 4, 4, 130, 64, 129)])
+def test_decode_at_split_edges_one_launch(cuda, b, hq, hkv, skv, d, kv_len,
+                                          dtype):
+    """kv_len 1, under, at and past one 64-key stage, ragged last splits;
+    one launch a call, and a second call on the same stream gives the
+    same output."""
+    gen = torch.Generator(device=cuda).manual_seed(skv + kv_len + d)
+    q = _randn(gen, (b, hq, d), dtype, cuda)
+    k = _randn(gen, (b, skv, hkv, d), dtype, cuda)
+    v = _randn(gen, (b, skv, hkv, d), dtype, cuda)
+    before = DK.LAUNCHES["decode_attention"]
+    out = DK.decode_attention(q, k, v, kv_len)
+    again = DK.decode_attention(q, k, v, kv_len)
+    assert DK.LAUNCHES["decode_attention"] == before + 2
+    plain = DK.decode_attention_plain(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert _close(out, plain, dtype)
+    assert torch.equal(out, again)
+
+
+def test_decode_consecutive_calls_with_other_splits(cuda):
+    """Consecutive calls with other split counts on one stream: each
+    call's combine sees only its own splits."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    k = _randn(gen, (2, 3000, 4, 64), torch.bfloat16, cuda)
+    v = _randn(gen, (2, 3000, 4, 64), torch.bfloat16, cuda)
+    q = _randn(gen, (2, 16, 64), torch.bfloat16, cuda)
+    outs = [DK.decode_attention(q, k, v, n) for n in (3000, 100, 3000, 1)]
+    torch.cuda.synchronize()
+    for n, out in zip((3000, 100, 3000, 1), outs):
+        assert _close(out, DK.decode_attention_plain(q, k, v, n),
+                      torch.bfloat16)
+    assert torch.equal(outs[0], outs[2])
 
 
 def test_attention_wrappers_refuse_what_the_kernels_cannot_take(cuda):

@@ -156,3 +156,55 @@ def test_wrappers_dispatch_on_device():
     with pytest.raises(ValueError):
         TO.decode_attention(tq, tk, tv, 301)
     assert TK.LAUNCHES == before
+
+
+# (b, hkv, kv_len): path D's shape and its long cache, ragged and short
+# caches, kv_len 0 and 1, many (batch, kv head) pairs, one kv head
+PLANS = [(1, 8, 2048), (1, 8, 32000), (1, 8, 1999), (3, 2, 700), (2, 8, 1),
+         (2, 8, 63), (2, 8, 64), (2, 8, 65), (1, 1, 1_000_000),
+         (64, 8, 4096), (2, 8, 0), (1, 32, 300)]
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("b,hkv,kv_len", PLANS)
+def test_split_plan_tiles_the_cache_and_fills_the_card(b, hkv, kv_len, n_sm):
+    """The CUDA kernel's splits: whole multiples of 64 keys that tile
+    [0, kv_len) exactly (the last may be short, none is empty), at most
+    16 (one thread block cluster), and more than half of the splits that
+    would bring the grid to two CTAs an SM where kv_len (256 keys a
+    split) and the cluster allow."""
+    chunk, n_split = TK.split_plan(b, hkv, kv_len, n_sm)
+    assert chunk > 0 and chunk % 64 == 0 and 1 <= n_split <= 16
+    if kv_len == 0:
+        assert n_split == 1
+        return
+    starts = np.arange(n_split) * chunk
+    ends = np.minimum(starts + chunk, kv_len)
+    assert starts[0] == 0 and ends[-1] == kv_len
+    assert np.all(ends > starts) and np.all(starts[1:] == ends[:-1])
+    want = min(16, -(-kv_len // 256), -(-2 * n_sm // (b * hkv)))
+    assert 2 * n_split > want
+
+
+def test_split_plan_at_the_paths_shapes():
+    """Path D (Qwen3-4B's 8 kv heads) on an H100's 132 SMs: 8 splits of
+    256 keys at kv_len 2048, 16 of 2048 keys at 32,000."""
+    assert TK.split_plan(1, 8, 2048, 132) == (256, 8)
+    assert TK.split_plan(1, 8, 32000, 132) == (2048, 16)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,hq,hkv,skv,d,klen,blk", CASES)
+def test_plain_at_the_kernels_split_matches_pallas(b, hq, hkv, skv, d, klen,
+                                                   blk, dtype):
+    """The plain version blocked as the CUDA kernel splits the cache on an
+    H100 (132 SMs) against the Pallas kernel at its own kv_block: the
+    split moves only rounding."""
+    atol = DTYPES[dtype][2]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(skv + d + klen + 1, b, hq, hkv,
+                                         skv, d, dtype)
+    chunk, _ = TK.split_plan(b, hkv, klen, 132)
+    tout = TK.decode_attention_plain(tq, tk, tv, klen, kv_block=chunk)
+    jout = JK.decode_attention(jq, jk, jv, klen, kv_block=blk,
+                               interpret=True)
+    _close(jout, tout, atol)
