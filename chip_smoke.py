@@ -10,13 +10,23 @@ Phases, in order; any failure exits non-zero:
      parallel), with ptxas's registers, shared memory and spills of each;
   2. each kernel against its plain PyTorch version on the card at the
      main path's shapes and at ragged row counts: bit-equal, and timed
-     with CUDA events (median of 50 launches, L2 flushed before each);
+     with CUDA events (median of 50 launches, L2 flushed before each).
+     The dequant kernel also takes staged batches into K and V caches
+     (ragged entries, several widths, fp32 and bf16; nothing written
+     outside the entries) and whole requests: one launch over a cachegen
+     request's 144 chunk tensors and over path B's 16 (mixed form), timed
+     beside its plain version and, for the uniform form, in turns with
+     the one torch.addcmul call that computes the same values;
   3. path A: sparkv-qwen3-4b at full width and depth, random weights from
      a seed; one 2048-token context (1024-token chunks, 72 KV chunks);
-     three requests (sparkv, cachegen, local_prefill), 8 new tokens each;
+     three requests (sparkv, cachegen, local_prefill), 8 new tokens each,
+     each streaming request dequantized in exactly one kv_dequant launch;
+     then the dequant of every stored chunk timed on the host clock two
+     ways in turns: the per-chunk route (a launch per chunk tensor, plus
+     a slice copy) and the one staged launch;
   4. path B: the same width at 4 layers with per-chunk bit-widths
      (alloc_schedule="attention"), one cachegen request, which takes the
-     mixed-bitwidth kernel;
+     mixed form in exactly one launch;
   5. path C: sparse prefill attention at full width: layer 0's q/k/v of
      path A's weights for a seeded 8192-token sequence through
      kernels/block_sparse_attn/ops.sparse_prefill_attention (one
@@ -199,10 +209,72 @@ def _perf(err, ms, plain_ms, library_ms, nbytes, ops, peak):
             "library_ms": library_ms}
 
 
+# the batches of tests/test_torch_kv_dequant.py: (group, mixed form,
+# entries of (cache, slot, values, bits)) into K and V caches of 6 slots of
+# 4096 values; ragged counts, several widths, slots left unwritten
+BATCHES = [
+    (64, False, [("k", 0, 1000, 5), ("v", 0, 1000, 5), ("k", 2, 33, 5),
+                 ("v", 3, 64, 5), ("k", 4, 17, 5), ("v", 5, 4096, 5),
+                 ("k", 5, 1, 5)]),
+    (32, False, [("k", 1, 100, 4), ("v", 1, 4096, 4), ("v", 4, 31, 4)]),
+    (64, True, [("k", 0, 1000, 3), ("v", 0, 1000, 8), ("k", 1, 4096, 5),
+                ("v", 2, 65, 4), ("k", 3, 7, 6), ("v", 4, 4096, 5)]),
+    (32, True, [("k", 0, 48, 4), ("k", 2, 4000, 6), ("v", 2, 4000, 5),
+                ("v", 5, 129, 3)]),
+    (64, True, [("v", 1, 4096, 5), ("k", 3, 333, 5)]),
+]
+SENTINEL = -7.25
+
+
+def _qt(rng, n, bits, group, shape):
+    """A random chunk tensor of n values at `bits` (codes, spans, steps
+    and zeros drawn directly: no quantizer pass over the data)."""
+    from repro_torch.compression.quantize import QuantizedTensor
+    g = -(-n // group)
+    spans = rng.uniform(0.1, 4.0, g).astype(np.float32)
+    return QuantizedTensor(
+        codes=rng.integers(0, 1 << bits, n, dtype=np.uint8),
+        scales=(spans / np.float32((1 << bits) - 1)).astype(np.float32),
+        zeros=rng.normal(size=g).astype(np.float32), bits=bits, group=group,
+        shape=shape, spans=spans)
+
+
+def _request_chunks(rng, n_layers, widths, device, *, n_tokens=2048,
+                    ct=1024, hkv=8, hd=128, group=64):
+    """A streamed request at Qwen3-4B's KV width: the K and V chunk
+    tensors of every (layer, 1024-token chunk), and a function that makes
+    a fresh pair of fp32 caches and the destination of each chunk in it."""
+    import torch
+    qts = [_qt(rng, ct * hkv * hd, int(rng.choice(widths)), group,
+               (ct, hkv, hd))
+           for _ in range(n_layers * (n_tokens // ct) * 2)]
+
+    def caches():
+        cache = {c: torch.full((n_layers, 1, n_tokens, hkv, hd), SENTINEL,
+                               device=device) for c in "kv"}
+        dests = [cache[c][l, 0, t * ct:(t + 1) * ct]
+                 for l in range(n_layers) for t in range(n_tokens // ct)
+                 for c in "kv"]
+        return cache, dests
+    return qts, caches
+
+
+def _batch_bytes(qts, out_bytes=4):
+    """What one launch must move: each code read once (1 B), each value
+    written once, each group's two parameters and each table row read
+    once."""
+    n = sum(int(np.prod(q.shape)) for q in qts)
+    g = sum(q.scales.shape[0] for q in qts)
+    return n * (1 + out_bytes) + 8 * g + 32 * len(qts), n, g
+
+
 def kernel_phase(device):
-    """Bit-equality and timing of each kernel against its plain version."""
+    """Bit-equality and timing of the dequant kernel against its plain
+    version: the row-matrix forms, staged batches into K and V caches,
+    and whole requests."""
     import torch
     from repro_torch.kernels.kv_dequant import kernel as K
+    from repro_torch.kernels.kv_dequant import ops as KO
 
     gen = torch.Generator(device=device).manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
@@ -214,9 +286,10 @@ def kernel_phase(device):
         e = float((out.float() - plain.float()).abs().max()) \
             if out.numel() else 0.0
         err[name] = max(err[name], e)
-        print(f"  {name:17s} {label:32s} bit-equal={ok} max_abs_err={e}")
+        print(f"  {name:17s} {label:36s} bit-equal={ok} max_abs_err={e}")
         check(ok, f"{name} differs from its plain version at {label}")
 
+    # the row-matrix forms (one entry; one entry a row when mixed)
     for n, width, group in ((2048, 512, 64), (37, 128, 64), (255, 256, 64),
                             (129, 128, 32), (5, 192, 64)):
         codes, scales, _, zeros, _ = _dequant_inputs(gen, n, width, group,
@@ -227,7 +300,7 @@ def kernel_phase(device):
             plain = K.kv_dequant_plain(codes, scales, zeros, group=group,
                                        out_dtype=dt)
             compare("kv_dequant", out, plain,
-                    f"{n}x{width} g{group} 5b {str(dt)[6:]}")
+                    f"rows {n}x{width} g{group} 5b {str(dt)[6:]}")
     for n, width, group in ((16 * 2048, 512, 64), (53, 256, 64),
                             (7, 128, 32)):
         codes, _, spans, zeros, bits = _dequant_inputs(
@@ -238,43 +311,84 @@ def kernel_phase(device):
             plain = K.kv_dequant_mixed_plain(codes, spans, zeros, bits,
                                              group=group, out_dtype=dt)
             compare("kv_dequant_mixed", out, plain,
-                    f"{n}x{width} g{group} 3-8b {str(dt)[6:]}")
+                    f"rows {n}x{width} g{group} 3-8b {str(dt)[6:]}")
 
-    # timing at the main path's shapes: one 1024x8x128 chunk (2048 rows of
-    # 8 groups of 64) per kv_dequant launch; path B's 8 chunks x (K, V) in
-    # one kv_dequant_mixed launch; fp32 out, as load_context asks
-    rows = {"kv_dequant": 2048, "kv_dequant_mixed": 16 * 2048}
-    width, group = 512, 64
+    # staged batches into K and V caches: kernel and plain version write
+    # the same bits, and the kernel nothing outside its entries
+    rng = np.random.default_rng(0)
+    for group, mixed, entries in BATCHES:
+        qts = [_qt(rng, n, b, group, (n,)) for _, _, n, b in entries]
+        name = "kv_dequant_mixed" if mixed else "kv_dequant"
+        for dt in (torch.float32, torch.bfloat16):
+            out = []
+            for run in (K.dequant_batch, K.dequant_batch_plain):
+                cache = {c: torch.full((6, 4096), SENTINEL, dtype=dt,
+                                       device=device) for c in "kv"}
+                run(KO.stage(qts, [cache[c][slot] for c, slot, _, _
+                                   in entries], mixed=mixed))
+                out.append(torch.cat([cache["k"], cache["v"]]))
+            label = (f"batch {len(entries)} entries g{group} "
+                     f"{sorted({b for *_, b in entries})}b {str(dt)[6:]}")
+            compare(name, out[0], out[1], label)
+            written = torch.zeros((12, 4096), dtype=torch.bool,
+                                  device=device)
+            for c, slot, n, _ in entries:
+                written[slot + 6 * (c == "v"), :n] = True
+            check(bool((out[0][~written] == SENTINEL).all()),
+                  f"{name} wrote outside its entries at {label}")
+
+    # timing, fp32 out as load_context asks: the single-chunk shape of the
+    # per-chunk design (one chunk tensor, 2048 x 512 codes), a cachegen
+    # request of path A (36 layers x 2 chunks x K/V = 144 entries) and
+    # path B's request (4 layers, widths 4/5/6: 16 entries, the mixed
+    # form); the uniform form beside the one PyTorch call that computes
+    # the same values, in turns
     perf = {}
-    for name, n in rows.items():
-        codes, scales, spans, zeros, bits = _dequant_inputs(
-            gen, n, width, group, [5] if name == "kv_dequant"
-            else [3, 4, 5, 6, 8], device)
-        g = width // group
-        if name == "kv_dequant":
-            kern = lambda: K.kv_dequant(codes, scales, zeros, group=group,
-                                        out_dtype=torch.float32)
-            plain = lambda: K.kv_dequant_plain(codes, scales, zeros,
-                                               group=group,
-                                               out_dtype=torch.float32)
-            nbytes = n * width * (1 + 4) + 2 * n * g * 4
-            ops = 2 * n * width
+    for label, name, n_layers, widths in (
+            ("one chunk (2048x512)", "kv_dequant", None, [5]),
+            ("cachegen request", "kv_dequant", 36, [5]),
+            ("path B request", "kv_dequant_mixed", 4, [4, 5, 6])):
+        mixed = name == "kv_dequant_mixed"
+        if n_layers is None:
+            qts = [_qt(rng, 2048 * 512, 5, 64, (1024, 8, 128))]
+            caches = lambda: (None, [torch.empty((1024, 8, 128),
+                                                 device=device)])
         else:
-            kern = lambda: K.kv_dequant_mixed(codes, spans, zeros, bits,
-                                              group=group,
-                                              out_dtype=torch.float32)
-            plain = lambda: K.kv_dequant_mixed_plain(
-                codes, spans, zeros, bits, group=group,
-                out_dtype=torch.float32)
-            nbytes = n * width * (1 + 4) + 2 * n * g * 4 + n * 4
-            ops = 2 * n * width + n * g
-        ms = time_ms(kern, flush)
-        plain_ms = time_ms(plain, flush)
-        perf[name] = _perf(err[name], ms, plain_ms, None, nbytes, ops,
-                           FP32_FLOPS)
-        print(f"  {name:17s} {n}x{width} fp32: kernel {ms:.6f} ms, plain "
-              f"{plain_ms:.6f} ms, bound {perf[name]['bound_ms']:.6f} ms "
-              f"({nbytes} B)")
+            qts, caches = _request_chunks(rng, n_layers, widths, device)
+        got = []
+        for run in (K.dequant_batch, K.dequant_batch_plain):
+            cache, dests = caches()
+            run(KO.stage(qts, dests, mixed=mixed))
+            got.append(torch.cat([d.reshape(-1) for d in dests]))
+        compare(name, got[0], got[1], f"{label} fp32")
+        del got
+        cache, dests = caches()
+        b = KO.stage(qts, dests, mixed=mixed)
+        kern = lambda: K.dequant_batch(b)
+        plain_ms = time_ms(lambda: K.dequant_batch_plain(b), flush)
+        n_groups = b.params.numel()
+        if mixed:
+            ms, lib_ms = time_ms(kern, flush), None
+        else:
+            ms, lib_ms = time_in_turns(kern, lambda: torch.addcmul(
+                b.zeros[:, None], b.codes.view(n_groups, b.group),
+                b.params[:, None]), flush)
+        nbytes, n_vals, _ = _batch_bytes(qts)
+        ops = 2 * n_vals + (n_groups if mixed else 0)
+        entry = _perf(err[name], ms, plain_ms, lib_ms, nbytes, ops,
+                      FP32_FLOPS)
+        grid = K.grid_size(b.codes.numel(), mixed=mixed,
+                           out_dtype=torch.float32)
+        print(f"  {name:17s} {label}, {len(qts)} entries, grid {grid} CTAs: "
+              f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+              + (f"torch.addcmul {lib_ms:.6f} ms, " if lib_ms else
+                 "library none (a division and an addcmul), ")
+              + f"bound {entry['bound_ms']:.6f} ms ({nbytes} B); kernel "
+              f"{nbytes / ms / 1e9:.3f} TB/s, {entry['bound_ms'] / ms:.1%} "
+              "of its bound", flush=True)
+        if n_layers is not None:
+            perf[name] = entry
+        del b, cache, dests, caches
     return perf
 
 
@@ -698,7 +812,7 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
     rng = np.random.default_rng(seed)
     srv, seen = build_server(cfg, spcfg, device, seed)
     if keep is not None:
-        keep["params"] = srv.params
+        keep["params"], keep["server"] = srv.params, srv
     tokens = rng.integers(0, cfg.vocab_size, size=(1, n_tokens))
     print(f"[{label}] {cfg.name}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff "
@@ -709,6 +823,8 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
     t0 = time.perf_counter()
     cid = srv.register_context(tokens)
     st = srv.contexts[cid]
+    if keep is not None:
+        keep["context"] = st
     print(f"[{label}] register_context: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(f'{k} {v:.3f}' for k, v in srv.phase_s.items())}),"
           f" {st.n_chunks} chunks, {st.wl.total_bytes() / 1e6:.3f} MB "
@@ -732,6 +848,9 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
               f"{res.wall_s:.3f} s, launches {launched}", flush=True)
         print(f"[{label}] {policy:13s} wall split: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in split.items()), flush=True)
+        print(f"[{label}] {policy:13s} dequant phase "
+              f"{split.get('dequant', 0.0):.6f} s for {res.n_streamed} "
+              f"streamed chunks, launches {launched}", flush=True)
         check(res.n_streamed + res.n_computed == st.n_chunks,
               f"{policy}: streamed + computed != {st.n_chunks}")
         check(seen.get("finite") and seen["n_logits"] == 2 * max_new,
@@ -753,6 +872,73 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
         widths = {q.bits for c in seen["res"].engine.streamed_set
                   for q in st.encoded[c][2:]}
         yield policy, res, launched, widths
+
+
+def dequant_routes(srv, st, device, *, turns=2):
+    """Host-clock seconds of dequantizing every chunk of a stored context
+    into fresh copies of its cache (a cachegen request's dequant phase,
+    Huffman decoding left out: the stored codes are what it returns),
+    two ways in turns (old, new, new, old, ...): the per-chunk route that
+    one staged launch replaced, a launch per K or V chunk tensor through
+    the row form after three pageable copies of its packed rows, and a
+    slice copy of each output into the cache; and the route load_context
+    takes, one staged batch and one launch."""
+    import torch
+    from repro_torch.kernels.kv_dequant import kernel as K
+    from repro_torch.kernels.kv_dequant import ops as KO
+
+    ct = srv.chunk_tokens
+    chunks = sorted(st.encoded)
+    qts = [q for c in chunks for q in st.encoded[c][2:]]
+
+    def old(k, v):
+        for c in chunks:
+            for q, x in zip(st.encoded[c][2:], (k, v)):
+                n, g = int(np.prod(q.shape)), q.scales.shape[0]
+                check(n == g * q.group and g % 8 == 0,
+                      "old route: chunk not whole rows of 8 groups")
+                codes, scales, zeros = (
+                    torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for a in (q.codes.reshape(g // 8, 8 * q.group),
+                              q.scales.reshape(g // 8, 8),
+                              q.zeros.reshape(g // 8, 8)))
+                out = K.kv_dequant(codes, scales, zeros, group=q.group,
+                                   out_dtype=torch.float32)
+                x[c.l, 0, c.t * ct:(c.t + 1) * ct] = out.reshape(q.shape)
+
+    def new(k, v):
+        # dequantize_into, with the staging (host fill of the pinned
+        # buffer, copy enqueued) timed on its own
+        t0 = time.perf_counter()
+        b = KO.stage(qts, [x[c.l, 0, c.t * ct:(c.t + 1) * ct]
+                           for c in chunks for x in (k, v)],
+                     mixed=len({q.bits for q in qts}) > 1)
+        staged.append(time.perf_counter() - t0)
+        KO.dequant_batch(b)
+
+    times, staged = {"old": [], "new": []}, []
+    caches = {}
+    for name in ("old", "new", "new", "old") * turns:
+        k, v = st.exact_k.clone(), st.exact_v.clone()
+        torch.cuda.synchronize()
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        (old if name == "old" else new)(k, v)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        n = K.LAUNCHES["kv_dequant"] - before["kv_dequant"]
+        check(n == (len(qts) if name == "old" else 1),
+              f"{name} route: {n} kv_dequant launches")
+        caches[name] = (k, v)
+    same = all(_bits_equal(a, b) for a, b in zip(caches["old"],
+                                                 caches["new"]))
+    print(f"[path A] dequant of {len(qts)} chunk tensors, host clock, in "
+          f"turns: per-chunk route (a launch each + slice copy) "
+          f"{', '.join(f'{t:.6f}' for t in times['old'])} s; one staged "
+          f"launch {', '.join(f'{t:.6f}' for t in times['new'])} s, of "
+          f"which staging {', '.join(f'{t:.6f}' for t in staged)} s; "
+          f"caches bit-equal={same}", flush=True)
+    check(same, "the two dequant routes assemble different caches")
 
 
 # ----------------------------------------------------------------------------
@@ -815,12 +1001,16 @@ def main():
         for policy, res, launched, widths in serve_path(
                 "path A", cfg, spcfg, 2048,
                 ("sparkv", "cachegen", "local_prefill"), device, keep=kept):
-            check(launched["kv_dequant"] == 2 * res.n_streamed,
-                  f"{policy}: kv_dequant launches {launched} != 2 x "
-                  f"{res.n_streamed} streamed chunks")
+            want = 1 if res.n_streamed else 0
+            check(launched == {"kv_dequant": want, "kv_dequant_mixed": 0},
+                  f"{policy}: dequant launches {launched}, not {want} "
+                  f"kv_dequant for {res.n_streamed} streamed chunks")
             for k in launched:
                 launches[k] += launched[k]
-        check(launches["kv_dequant"] > 0, "path A never launched kv_dequant")
+        check(launches["kv_dequant"] == 2,
+              f"path A launched kv_dequant {launches['kv_dequant']} times, "
+              "not 2")
+        dequant_routes(kept.pop("server"), kept.pop("context"), device)
         K.reset_launches()
 
         # path B: same width, 4 layers, per-chunk widths
@@ -831,8 +1021,9 @@ def main():
                 "path B", cfg_b, spcfg_b, 2048, ("cachegen",), device):
             print(f"[path B] streamed chunk widths {sorted(widths)}")
             check(len(widths) > 1, "path B streamed only one width")
-            check(launched["kv_dequant_mixed"] >= 1,
-                  "path B never launched kv_dequant_mixed")
+            check(launched == {"kv_dequant": 0, "kv_dequant_mixed": 1},
+                  f"path B: dequant launches {launched}, not one "
+                  "kv_dequant_mixed")
             for k in launched:
                 launches[k] += launched[k]
 

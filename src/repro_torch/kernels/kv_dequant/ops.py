@@ -1,9 +1,15 @@
-"""Wrapper: QuantizedTensor (wire format) -> KV tensor on a device, via
-the fused dequant kernel on CUDA and its plain version on the CPU.
+"""Wrapper: QuantizedTensor (wire format) -> KV values on a device, via
+the dequantization kernel on CUDA and its plain version on the CPU.
 
-The row packing is the reference's (``repro/kernels/kv_dequant/ops.py``):
-whole groups per row, at most 8 groups a row, pad groups with step
-(span) 1 and zero 0.
+``stage`` lays a list of chunk tensors out as one ``kernel.Batch``: their
+codes, parameters and zeros concatenated as whole groups, and an entry
+table whose rows point at the caller's destination tensors. Everything
+is written into one host buffer, pinned when the device is the card,
+and reaches the device in one non-blocking copy. PyTorch's caching host
+allocator keeps the pinned block for the next batch of its size, and
+holds it back until the copy out of it has completed. ``dequantize_into``
+stages and launches; ``dequantize_chunk`` and ``dequantize_chunks_mixed``
+keep the reference's per-chunk contracts on top of it.
 """
 from __future__ import annotations
 
@@ -40,43 +46,14 @@ def kv_dequant_mixed(codes, spans, zeros, bits, *, group: int,
     raise ValueError(f"no kv_dequant_mixed for device {codes.device}")
 
 
-def _pack(qt: QuantizedTensor, gpr: int, params: np.ndarray):
-    """(codes (rows, gpr*group) u8, params (rows, gpr), zeros (rows, gpr))
-    with the tail padded by whole groups of step 1, zero 0."""
-    n_vals = int(np.prod(qt.shape))
-    group = qt.group
-    g_total = qt.scales.shape[0]
-    codes = np.zeros(g_total * group, np.uint8)
-    codes[:n_vals] = qt.codes
-    rows = -(-g_total // gpr)
-    pad_g = rows * gpr - g_total
-    codes = codes.reshape(g_total, group)
-    zeros = qt.zeros
-    if pad_g:
-        codes = np.concatenate([codes, np.zeros((pad_g, group), np.uint8)])
-        params = np.concatenate([params, np.ones(pad_g, np.float32)])
-        zeros = np.concatenate([zeros, np.zeros(pad_g, np.float32)])
-    return (codes.reshape(rows, gpr * group),
-            params.astype(np.float32).reshape(rows, gpr),
-            zeros.astype(np.float32).reshape(rows, gpr))
-
-
-def _to(device, *arrays):
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in arrays]
-
-
-def dequantize_chunk(qt: QuantizedTensor, *, out_dtype=torch.bfloat16,
-                     device=None) -> torch.Tensor:
-    """Dequantize a streamed KV chunk on `device` (default: the card).
-    Returns a qt.shape tensor."""
-    dev = resolve(device)
-    n_vals = int(np.prod(qt.shape))
-    gpr = max(1, min(8, qt.scales.shape[0]))
-    codes, scales, zeros = _to(dev, *_pack(qt, gpr, qt.scales))
-    out = kv_dequant(codes, scales, zeros, group=qt.group,
-                     out_dtype=out_dtype)
-    return out.reshape(-1)[:n_vals].reshape(qt.shape)
+def dequant_batch(b: K.Batch) -> None:
+    """Same dispatch for a batch: one kernel launch on the card, the plain
+    version on the CPU."""
+    if b.codes.device.type == "cuda":
+        return K.dequant_batch(b)
+    if b.codes.device.type == "cpu":
+        return K.dequant_batch_plain(b)
+    raise ValueError(f"no kv_dequant for device {b.codes.device}")
 
 
 def _spans_of(qt: QuantizedTensor) -> np.ndarray:
@@ -86,34 +63,78 @@ def _spans_of(qt: QuantizedTensor) -> np.ndarray:
     return (qt.scales * np.float32((1 << qt.bits) - 1)).astype(np.float32)
 
 
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def stage(qts: list, dests: list, *, mixed: bool) -> K.Batch:
+    """One batch whose entry e writes qts[e]'s values into dests[e] (a
+    contiguous tensor on the device, at least that many elements). The
+    uniform form carries the steps (``scales``); the mixed form the spans
+    and each entry's bit-width. Chunks without values are left out."""
+    if len(qts) != len(dests) or not qts:
+        raise ValueError("one destination per chunk, and at least one")
+    group = qts[0].group
+    if any(q.group != group for q in qts):
+        raise ValueError("heterogeneous group size")
+    dev = dests[0].device
+    keep = [e for e, q in enumerate(qts) if int(np.prod(q.shape))]
+    qts, dests = [qts[e] for e in keep], [dests[e] for e in keep]
+    n_vals = np.array([int(np.prod(q.shape)) for q in qts], np.int64)
+    n_grp = -(-n_vals // group)
+    first = np.cumsum(n_grp) - n_grp
+    n_groups = int(n_grp.sum())
+    o_par = _up16(n_groups * group)
+    o_zero = o_par + _up16(4 * n_groups)
+    o_tab = o_zero + _up16(4 * n_groups)
+    host = torch.empty(o_tab + 32 * len(qts), dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    h = host.numpy()
+    codes = h[:n_groups * group]
+    params = h[o_par:o_par + 4 * n_groups].view(np.float32)
+    zeros = h[o_zero:o_zero + 4 * n_groups].view(np.float32)
+    rows = h[o_tab:].view(np.int64).reshape(-1, 4)
+    for q, a, g, n in zip(qts, first, n_grp, n_vals):
+        codes[a * group:a * group + n] = q.codes
+        codes[a * group + n:(a + g) * group] = 0
+        params[a:a + g] = (_spans_of(q) if mixed else q.scales)[:g]
+        zeros[a:a + g] = q.zeros[:g]
+    rows[:, 0], rows[:, 1] = first, n_vals
+    rows[:, 2] = [d.data_ptr() for d in dests]
+    rows[:, 3] = [q.bits for q in qts] if mixed else 0
+    rows = rows.copy()            # the host buffer goes back to its pool
+    buf = host.to(dev, non_blocking=True)
+    return K.Batch(
+        codes=buf[:n_groups * group],
+        params=buf[o_par:o_par + 4 * n_groups].view(torch.float32),
+        zeros=buf[o_zero:o_zero + 4 * n_groups].view(torch.float32),
+        table=buf[o_tab:].view(torch.int64).view(-1, 4), dests=dests,
+        rows=rows, group=group, mixed=mixed)
+
+
+def dequantize_into(qts: list, dests: list, *, mixed: bool) -> None:
+    """Dequantize chunk tensors straight into `dests` (see ``stage``) in
+    one kernel launch on the card."""
+    dequant_batch(stage(qts, dests, mixed=mixed))
+
+
+def dequantize_chunk(qt: QuantizedTensor, *, out_dtype=torch.bfloat16,
+                     device=None) -> torch.Tensor:
+    """Dequantize a streamed KV chunk on `device` (default: the card).
+    Returns a qt.shape tensor."""
+    out = torch.empty(qt.shape, dtype=out_dtype, device=resolve(device))
+    dequantize_into([qt], [out], mixed=False)
+    return out
+
+
 def dequantize_chunks_mixed(qts: list, *, out_dtype=torch.bfloat16,
                             device=None) -> list:
     """Dequantize many streamed KV chunks of heterogeneous bit-widths in
     ONE kernel launch. All chunks must share the quantization group size;
-    each chunk's groups are packed into rows carrying that chunk's
-    bit-width in the per-row bits plane. Returns one qt.shape tensor per
-    input, each exactly equal (in fp32) to its `dequantize_chunk`."""
+    each entry carries its chunk's bit-width. Returns one qt.shape tensor
+    per input, each exactly equal (in fp32) to its `dequantize_chunk`."""
     assert qts, "empty chunk list"
     dev = resolve(device)
-    group = qts[0].group
-    assert all(q.group == group for q in qts), "heterogeneous group size"
-    gpr = max(1, min(8, max(q.scales.shape[0] for q in qts)))
-    codes_rows, span_rows, zero_rows, bits_rows = [], [], [], []
-    for qt in qts:
-        codes, spans, zeros = _pack(qt, gpr, _spans_of(qt))
-        codes_rows.append(codes)
-        span_rows.append(spans)
-        zero_rows.append(zeros)
-        bits_rows.append(np.full((codes.shape[0], 1), qt.bits, np.int32))
-    starts = np.cumsum([0] + [c.shape[0] for c in codes_rows])
-    codes, spans, zeros, bits = _to(
-        dev, np.concatenate(codes_rows), np.concatenate(span_rows),
-        np.concatenate(zero_rows), np.concatenate(bits_rows))
-    out = kv_dequant_mixed(codes, spans, zeros, bits, group=group,
-                           out_dtype=out_dtype)
-    results = []
-    for i, qt in enumerate(qts):
-        n_vals = int(np.prod(qt.shape))
-        rows = out[starts[i]:starts[i + 1]]
-        results.append(rows.reshape(-1)[:n_vals].reshape(qt.shape))
-    return results
+    outs = [torch.empty(q.shape, dtype=out_dtype, device=dev) for q in qts]
+    dequantize_into(qts, outs, mixed=True)
+    return outs

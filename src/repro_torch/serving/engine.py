@@ -9,8 +9,8 @@ each request then *loads* that context through a policy pipeline
     real compressed bytes, ground-truth compute latencies);
   - the KV cache content is assembled concretely on the server's device:
     streamed chunks are entropy-decoded on the host, then dequantized by
-    the kv_dequant kernels straight into the device cache; computed
-    chunks take the exact values.
+    one kv_dequant launch a request straight into the device cache;
+    computed chunks take the exact values.
 
 ``phase_s`` accumulates the wall seconds of each phase (prefill,
 quantize, huffman_encode, mask, plan, huffman_decode, dequant, decode);
@@ -36,8 +36,7 @@ from repro_torch.core.costs import NETWORKS, PROFILES
 from repro_torch.core.predictor import LatencyPredictor
 from repro_torch.data.workloads import WorkloadChunks
 from repro_torch.device import resolve, sync
-from repro_torch.kernels.kv_dequant.ops import (dequantize_chunk,
-                                                dequantize_chunks_mixed)
+from repro_torch.kernels.kv_dequant.ops import dequantize_into
 from repro_torch.models.api import Model
 
 
@@ -252,23 +251,15 @@ class SparKVServer:
                 qv2 = dataclasses.replace(qv, codes=dv.astype(np.uint8))
                 decoded.append((c, qk2, qv2))
         with self._phase("dequant"):
-            if len({q.bits for _, qk2, qv2 in decoded
-                    for q in (qk2, qv2)}) > 1:
-                # per-chunk adaptive widths: one mixed-bitwidth launch
-                # over every streamed chunk
-                outs = dequantize_chunks_mixed(
-                    [q for _, qk2, qv2 in decoded for q in (qk2, qv2)],
-                    out_dtype=torch.float32, device=self.device)
-                for (c, _, _), kd, vd in zip(decoded, outs[0::2],
-                                             outs[1::2]):
-                    k[c.l, 0, c.t * ct:(c.t + 1) * ct] = kd
-                    v[c.l, 0, c.t * ct:(c.t + 1) * ct] = vd
-            else:
-                for c, qk2, qv2 in decoded:
-                    k[c.l, 0, c.t * ct:(c.t + 1) * ct] = dequantize_chunk(
-                        qk2, out_dtype=torch.float32, device=self.device)
-                    v[c.l, 0, c.t * ct:(c.t + 1) * ct] = dequantize_chunk(
-                        qv2, out_dtype=torch.float32, device=self.device)
+            if decoded:
+                # one launch over every streamed chunk, K and V, written
+                # straight into the cache at its (layer, token-range) slot;
+                # per-chunk adaptive widths take the mixed form
+                qts = [q for _, qk2, qv2 in decoded for q in (qk2, qv2)]
+                dests = [x[c.l, 0, c.t * ct:(c.t + 1) * ct]
+                         for c, _, _ in decoded for x in (k, v)]
+                dequantize_into(qts, dests,
+                                mixed=len({q.bits for q in qts}) > 1)
         return k, v
 
     def generate(self, cid: int, prompt: np.ndarray, max_new: int = 8,

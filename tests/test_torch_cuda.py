@@ -10,12 +10,14 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from repro_torch.compression.quantize import quantize  # noqa: E402
 from repro_torch.configs import SparKVConfig, get_smoke  # noqa: E402
 from repro_torch.kernels.block_sparse_attn import kernel as BK  # noqa: E402
 from repro_torch.kernels.block_sparse_attn.ops import \
     block_lists  # noqa: E402
 from repro_torch.kernels.decode_attn import kernel as DK  # noqa: E402
 from repro_torch.kernels.kv_dequant import kernel as K  # noqa: E402
+from repro_torch.kernels.kv_dequant import ops as KO  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import SparKVServer  # noqa: E402
 
@@ -75,11 +77,79 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
                      zeros[:1], group=64)
 
 
+# the batches of tests/test_torch_kv_dequant.py: (group, mixed form,
+# entries of (cache, slot, values, bits)) into K and V caches of 6 slots of
+# 4096 values
+BATCHES = [
+    (64, False, [("k", 0, 1000, 5), ("v", 0, 1000, 5), ("k", 2, 33, 5),
+                 ("v", 3, 64, 5), ("k", 4, 17, 5), ("v", 5, 4096, 5),
+                 ("k", 5, 1, 5)]),
+    (32, False, [("k", 1, 100, 4), ("v", 1, 4096, 4), ("v", 4, 31, 4)]),
+    (64, True, [("k", 0, 1000, 3), ("v", 0, 1000, 8), ("k", 1, 4096, 5),
+                ("v", 2, 65, 4), ("k", 3, 7, 6), ("v", 4, 4096, 5)]),
+    (32, True, [("k", 0, 48, 4), ("k", 2, 4000, 6), ("v", 2, 4000, 5),
+                ("v", 5, 129, 3)]),
+    (64, True, [("v", 1, 4096, 5), ("k", 3, 333, 5)]),
+]
+SENTINEL = -7.25
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,mixed,entries", BATCHES)
+def test_batch_kernel_bit_equal_to_plain(cuda, group, mixed, entries,
+                                         dtype):
+    """One launch over a staged batch writes, bit for bit, what the plain
+    version writes into the K and V caches, and nothing elsewhere."""
+    rng = np.random.default_rng(group + len(entries))
+    qts = [quantize((3 * rng.normal(size=n)).astype(np.float32), b, group)
+           for _, _, n, b in entries]
+    caches = []
+    for run in (K.dequant_batch, K.dequant_batch_plain):
+        cache = {c: torch.full((6, 4096), SENTINEL, dtype=dtype,
+                               device=cuda) for c in "kv"}
+        b = KO.stage(qts, [cache[c][slot] for c, slot, _, _ in entries],
+                     mixed=mixed)
+        before = dict(K.LAUNCHES)
+        run(b)
+        launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        if run is K.dequant_batch:
+            assert launched == {"kv_dequant": int(not mixed),
+                                "kv_dequant_mixed": int(mixed)}
+        else:
+            assert not any(launched.values())
+        caches.append(cache)
+    torch.cuda.synchronize()
+    for c in "kv":
+        assert _same_bits(caches[0][c], caches[1][c])
+        written = torch.zeros((6, 4096), dtype=torch.bool, device=cuda)
+        for name, slot, n, _ in entries:
+            if name == c:
+                written[slot, :n] = True
+        assert bool((caches[0][c][~written] == SENTINEL).all())
+
+
+def test_batch_launcher_refuses_what_the_kernel_cannot_take(cuda):
+    rng = np.random.default_rng(0)
+    qt = quantize(rng.normal(size=100).astype(np.float32), 5, 64)
+    flat = torch.zeros(1024, device=cuda)
+    with pytest.raises(ValueError):        # destination not 16-byte aligned
+        K.dequant_batch(KO.stage([qt], [flat[1:101]], mixed=False))
+    with pytest.raises(ValueError):        # destinations overlap
+        K.dequant_batch(KO.stage([qt, qt], [flat[:100], flat[64:164]],
+                                 mixed=False))
+    with pytest.raises(ValueError):        # destination too small
+        K.dequant_batch(KO.stage([qt], [flat[:96]], mixed=False))
+    with pytest.raises(ValueError):        # mixed destination dtypes
+        K.dequant_batch(KO.stage([qt, qt], [flat[:100], torch.zeros(
+            100, dtype=torch.bfloat16, device=cuda)], mixed=False))
+
+
 @pytest.mark.parametrize("sched", ["uniform", "attention"])
 def test_serving_on_card_goes_through_kernels(cuda, sched):
-    """A small server on the card launches the kernels for every streamed
-    chunk, and assembles exactly the cache a CPU server assembles from the
-    same stored context with the plain versions."""
+    """A small server on the card dequantizes every streamed chunk in one
+    launch (uniform or mixed form), and assembles exactly the cache a CPU
+    server assembles from the same stored context with the plain
+    versions."""
     cfg = get_smoke("sparkv-qwen3-4b", layers=3, d_model=64, heads=4,
                     d_ff=128, vocab=256)
     spcfg = SparKVConfig(chunk_tokens=32, q_block=16, kv_block=16,
@@ -94,7 +164,7 @@ def test_serving_on_card_goes_through_kernels(cuda, sched):
     n = res.engine.n_streamed
     assert n == srv.contexts[cid].n_chunks
     if sched == "uniform":
-        assert K.LAUNCHES == {"kv_dequant": 2 * n, "kv_dequant_mixed": 0}
+        assert K.LAUNCHES == {"kv_dequant": 1, "kv_dequant_mixed": 0}
     else:
         assert K.LAUNCHES == {"kv_dequant": 0, "kv_dequant_mixed": 1}
     st = srv.contexts[cid]

@@ -183,3 +183,99 @@ def test_wrappers_dispatch_on_device(rng):
     with pytest.raises(RuntimeError):
         TO.dequantize_chunk(_port_qt(quantize(
             rng.normal(size=(4, 64)).astype(np.float32), 5, 64)))
+
+
+# batches of chunk tensors written into a K and a V cache of 6 slots of
+# 4096 values: (group, mixed form, entries of (cache, slot, values,
+# bits)). Value counts off the 16-code run and the group, several widths,
+# slots left unwritten, tails of slots left unwritten.
+SLOTS, SLOT = 6, 4096
+BATCHES = {
+    "uniform_ragged": (64, False, [("k", 0, 1000, 5), ("v", 0, 1000, 5),
+                                   ("k", 2, 33, 5), ("v", 3, 64, 5),
+                                   ("k", 4, 17, 5), ("v", 5, 4096, 5),
+                                   ("k", 5, 1, 5)]),
+    "uniform_group32": (32, False, [("k", 1, 100, 4), ("v", 1, 4096, 4),
+                                    ("v", 4, 31, 4)]),
+    "mixed_ragged": (64, True, [("k", 0, 1000, 3), ("v", 0, 1000, 8),
+                                ("k", 1, 4096, 5), ("v", 2, 65, 4),
+                                ("k", 3, 7, 6), ("v", 4, 4096, 5)]),
+    "mixed_group32": (32, True, [("k", 0, 48, 4), ("k", 2, 4000, 6),
+                                 ("v", 2, 4000, 5), ("v", 5, 129, 3)]),
+    "mixed_one_width": (64, True, [("v", 1, 4096, 5), ("k", 3, 333, 5)]),
+}
+SENTINEL = -7.25
+
+
+def _batch_case(rng, case):
+    group, mixed, entries = BATCHES[case]
+    qts = [quantize((3 * rng.normal(size=n)).astype(np.float32), b, group)
+           for _, _, n, b in entries]
+    return group, mixed, entries, qts
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(BATCHES))
+def test_batch_plain_writes_reference_values_at_their_slots(case, dtype,
+                                                            rng):
+    """One staged batch through the table form's plain version, written
+    into K and V caches, equals the reference's dequantize_chunk (uniform)
+    or dequantize_chunks_mixed (mixed), in interpret mode, at each chunk's
+    slot, bit for bit; every other cache position keeps its value."""
+    jdt, tdt = DTYPES[dtype]
+    group, mixed, entries, qts = _batch_case(rng, case)
+    cache = {c: torch.full((SLOTS, SLOT), SENTINEL, dtype=tdt) for c in "kv"}
+    want = {c: _tbits(cache[c]).copy() for c in "kv"}
+    if mixed:
+        jouts = JO.dequantize_chunks_mixed(qts, out_dtype=jdt)
+    else:
+        jouts = [JO.dequantize_chunk(q, out_dtype=jdt) for q in qts]
+    for (c, slot, n, _), j in zip(entries, jouts):
+        want[c][slot, :n] = _bits(j).reshape(-1)
+    TO.dequantize_into([_port_qt(q) for q in qts],
+                       [cache[c][slot] for c, slot, _, _ in entries],
+                       mixed=mixed)
+    for c in "kv":
+        assert np.array_equal(_tbits(cache[c]), want[c])
+
+
+def test_stage_builds_the_entry_table(rng):
+    """Entries follow each other as whole groups: first groups, value
+    counts, destination addresses and (mixed) bit-widths in the table;
+    the codes, then zeros up to the group's end; spans or steps."""
+    for case in ("uniform_ragged", "mixed_ragged"):
+        group, mixed, entries, qts = _batch_case(rng, case)
+        cache = {c: torch.zeros((SLOTS, SLOT)) for c in "kv"}
+        dests = [cache[c][slot] for c, slot, _, _ in entries]
+        b = TO.stage([_port_qt(q) for q in qts], dests, mixed=mixed)
+        n = np.array([e[2] for e in entries])
+        first = np.concatenate([[0], np.cumsum(-(-n // group))[:-1]])
+        assert np.array_equal(b.table.numpy(), b.rows)
+        assert np.array_equal(b.rows[:, 0], first)
+        assert np.array_equal(b.rows[:, 1], n)
+        assert b.rows[:, 2].tolist() == [d.data_ptr() for d in dests]
+        assert b.rows[:, 3].tolist() == ([q.bits for q in qts] if mixed
+                                         else [0] * len(qts))
+        assert b.params.numel() == first[-1] + -(-n[-1] // group)
+        for q, f, k in zip(qts, first, n):
+            span = -(-k // group)
+            codes = b.codes[f * group:(f + span) * group].numpy()
+            assert np.array_equal(codes[:k], q.codes)
+            assert not codes[k:].any()
+            assert np.array_equal(b.params[f:f + span].numpy(),
+                                  q.spans if mixed else q.scales)
+            assert np.array_equal(b.zeros[f:f + span].numpy(), q.zeros)
+
+
+def test_batch_refuses_a_table_that_misses_its_destinations(rng):
+    """The plain version checks each table address against its
+    destination; the CUDA launcher refuses a batch on the CPU."""
+    group, mixed, entries, qts = _batch_case(rng, "uniform_group32")
+    cache = torch.zeros((SLOTS, SLOT))
+    b = TO.stage([_port_qt(q) for q in qts],
+                 [cache[slot] for _, slot, _, _ in entries], mixed=mixed)
+    with pytest.raises(ValueError):
+        TK.dequant_batch(b)
+    b.dests = b.dests[::-1]
+    with pytest.raises(ValueError):
+        TK.dequant_batch_plain(b)
