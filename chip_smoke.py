@@ -36,7 +36,24 @@ Phases, in order; any failure exits non-zero:
      kernels/decode_attn/ops.decode_attention call per layer (36 calls,
      one kernel launch each), each against the plain version and
      layers.flash_attention; then one long cache (32768 positions,
-     kv_len 32000) in bf16 and fp32.
+     kv_len 32000) in bf16 and fp32;
+  7. path E1: SparKVServer.serve_fleet on path A's server and context: 32
+     jobs, seeded Poisson arrivals, the policies sparkv, strong_hybrid,
+     cachegen and local_prefill mixed, a 2-slot WFQ run queue, SLO
+     admission with a deadline and 8 decoded tokens a request; then one
+     load_context for each streaming policy the fleet admitted, each in
+     exactly one kv_dequant launch;
+  8. path E2: a standalone ServingCluster at sparkv-qwen3-4b's width
+     with the planner trained on the card: 256 requests of the traffic
+     mix of examples/serve_fleet.py on 4 devices and 2 APs, a KV memory
+     budget that forces evictions, the cloud KV store, a handoff storm
+     with the fleet LP rebalancer and the online predictor refresh on
+     the card; run twice, and the two fleet fingerprints must be equal.
+
+Path E's TTFT, SLO attainment and energy are the fleet simulator's
+virtual clock, labelled "(simulated)"; beside them it prints what the
+card and host did: the fleet's wall seconds, the planner MLP's calls and
+their host-clock seconds (a device synchronise before and after each).
 
 Phase 2 also holds the attention kernels to their plain versions at the
 shapes of tests/test_kernels.py in fp32 (atol 2e-5) and bf16 (atol 2e-2,
@@ -824,7 +841,7 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
     cid = srv.register_context(tokens)
     st = srv.contexts[cid]
     if keep is not None:
-        keep["context"] = st
+        keep["context"], keep["cid"] = st, cid
     print(f"[{label}] register_context: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(f'{k} {v:.3f}' for k, v in srv.phase_s.items())}),"
           f" {st.n_chunks} chunks, {st.wl.total_bytes() / 1e6:.3f} MB "
@@ -942,6 +959,252 @@ def dequant_routes(srv, st, device, *, turns=2):
 
 
 # ----------------------------------------------------------------------------
+# path E: the fleet stack
+# ----------------------------------------------------------------------------
+
+
+class Clock:
+    """Counts the calls of one object's method and their host-clock
+    seconds, with a device synchronise before and after each call, so a
+    call's time is its own. Installed on the instance, removed on exit."""
+
+    def __init__(self, obj, method, device):
+        self.obj, self.method, self.device = obj, method, device
+        self.calls, self.seconds = 0, 0.0
+
+    def __enter__(self):
+        from repro_torch.device import sync
+        inner = getattr(self.obj, self.method)
+
+        def timed(*args, **kw):
+            sync(self.device)
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kw)
+            finally:
+                sync(self.device)
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+        setattr(self.obj, self.method, timed)
+        return self
+
+    def __exit__(self, *exc):
+        delattr(self.obj, self.method)
+
+    def __str__(self):
+        per = self.seconds / self.calls * 1e3 if self.calls else 0.0
+        return (f"{self.calls} calls, {self.seconds:.6f} s "
+                f"({per:.6f} ms a call)")
+
+
+def fleet_fingerprint(report):
+    """Every per-request observable of a fleet report, exactly as
+    produced (the tuple of tests/test_simcore.py::_fleet_fingerprint)."""
+    return [(r.spec.arrival_s, r.ttft_s, r.ttlt_s, r.energy_j,
+             r.uplink_share,
+             r.compute_wait_s, r.bytes_streamed, r.policy,
+             tuple(sorted(r.stage_shares.items())))
+            for r in report.records]
+
+
+def _print_fleet(label, rep):
+    """The fleet simulator's own metrics (its virtual clock, not the
+    card's), and the checks every fleet report must pass."""
+    s = rep.summary()
+    print(f"[{label}] (simulated) {s['n_done']} served of {rep.n_arrived}: "
+          f"TTFT p50 {s['ttft_p50_s']:.6f} s, p99 {s['ttft_p99_s']:.6f} s; "
+          f"SLO attainment {s['slo_attainment']}; shed {s['n_shed']}, "
+          f"downgraded {s['n_downgraded']}; energy "
+          f"{s['energy_per_req_j']:.3f} J a request; makespan "
+          f"{rep.makespan_s:.6f} s", flush=True)
+    check(len(rep.records) + len(rep.shed) == rep.n_arrived,
+          f"{label}: served + shed != arrived")
+    check(rep.records, f"{label}: the fleet served nothing")
+    check(all(math.isfinite(r.ttft_s) and r.ttft_s > 0
+              and math.isfinite(r.energy_j) for r in rep.records),
+          f"{label}: a request's TTFT or energy is not finite and positive")
+    return s
+
+
+def path_e1(srv, cid, device, *, n_jobs=32, rate_rps=2.0, seed=0):
+    """SparKVServer.serve_fleet on path A's server and context, then one
+    load_context for each streaming policy the fleet admitted; returns
+    (policy, streamed chunks, kv_dequant launches) a load."""
+    from repro_torch.core import baselines as TB
+    from repro_torch.core.costs import RunQueueModel
+    from repro_torch.kernels.kv_dequant import kernel as K
+    from repro_torch.serving.slo import SLOPolicy
+
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate_rps, n_jobs))
+    policies = ("sparkv", "strong_hybrid", "cachegen", "local_prefill")
+    jobs = [(cid, float(a), policies[i % len(policies)])
+            for i, a in enumerate(arrivals)]
+    n_tokens = srv.contexts[cid].wl.context_len
+    print(f"[path E1] serve_fleet: {n_jobs} jobs on the {n_tokens}-token "
+          f"context, Poisson {rate_rps}/s (seed {seed}), policies "
+          f"{', '.join(policies)}; WFQ run queue of 2, SLO admission, "
+          "deadline 4 s, 8 new tokens a request", flush=True)
+    srv._ensure_predictor()
+    pred = TB._PRED_CACHE[(srv.model.cfg.name, srv.profile)]
+    check(pred.device.type == device.type,
+          f"path E1: the planner lives on {pred.device}, not {device}")
+    with Clock(pred, "predict_ms", device) as mlp:
+        t0 = time.perf_counter()
+        rep = srv.serve_fleet(jobs, run_queue=RunQueueModel(2, "wfq"),
+                              slo=SLOPolicy(), deadline_s=4.0,
+                              max_new_tokens=8)
+        wall = time.perf_counter() - t0
+    _print_fleet("path E1", rep)
+    print(f"[path E1] card and host: fleet wall {wall:.6f} s; planner MLP "
+          f"on {pred.device}: {mlp}; simulator {rep.makespan_s:.6f} s of "
+          f"virtual time", flush=True)
+    check(mlp.calls >= len(rep.records), "path E1: fewer planner calls than "
+          "admitted requests")
+    planner_call_split(pred, srv.contexts[cid].wl, device)
+
+    admitted = sorted({r.policy for r in rep.records} - {"local_prefill"})
+    loads = []
+    for policy in admitted:
+        before = dict(K.LAUNCHES)
+        phases = dict(srv.phase_s)
+        t0 = time.perf_counter()
+        _, res = srv.load_context(cid, policy=policy, seed=1)
+        wall = time.perf_counter() - t0
+        launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        split = {k: srv.phase_s[k] - phases.get(k, 0.0) for k in srv.phase_s
+                 if srv.phase_s[k] - phases.get(k, 0.0)}
+        n = res.engine.n_streamed
+        print(f"[path E1] load_context {policy:13s} streamed {n}/computed "
+              f"{res.engine.n_computed}, wall {wall:.3f} s ("
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + f"), launches {launched}", flush=True)
+        loads.append((policy, n, launched))
+    return loads
+
+
+def planner_call_split(pred, wl, device, *, n=200):
+    """Host-clock median of one planner call (t_comp_batch over the
+    context's whole chunk grid, as an admission makes it) with the MLP
+    on `device`, and with a copy of the same MLP on the host CPU: what
+    the per-admission device round trip costs."""
+    import copy
+
+    import torch
+    t_idx = np.repeat(np.arange(wl.n_t, dtype=float), wl.n_l)
+    layers = np.tile(np.arange(wl.n_l), wl.n_t)
+    act = wl.active_blocks[:, :, 0].reshape(-1).astype(float)
+    host = copy.copy(pred)
+    host.params = [{k: t.cpu() for k, t in lyr.items()} for lyr in pred.params]
+    host.device = torch.device("cpu")
+    times = {}
+    outs = {}
+    for name, p in (("device", pred), ("host", host), ("host", host),
+                    ("device", pred)):
+        ts = []
+        for _ in range(n // 2):
+            t0 = time.perf_counter()
+            outs[name] = p.t_comp_batch(t_idx, layers, act, 0.3)
+            ts.append(time.perf_counter() - t0)
+        times.setdefault(name, []).extend(ts)
+    err = float(np.abs(outs["device"] - outs["host"]).max()
+                / np.abs(outs["host"]).max())
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    print(f"[path E1] one planner call over {len(act)} chunks, host clock, "
+          f"median of {n} in turns: MLP on {pred.device} {med['device']:.6f} "
+          f"ms, the same MLP on the host CPU {med['host']:.6f} ms "
+          f"(largest relative difference {err:.2e})", flush=True)
+    check(err <= 1e-5, "path E1: the planner MLP on the host disagrees with "
+          "the one on the card")
+
+
+def path_e2(cfg, device, *, n_requests=256, seed=42):
+    """A standalone ServingCluster with the planner cache filled on the
+    card: the traffic mix of examples/serve_fleet.py at n_requests, 4
+    devices and 2 APs, memory pressure, the cloud KV store, a handoff
+    storm with the rebalancer and the online refresh; run twice."""
+    from repro_torch.configs import SparKVConfig
+    from repro_torch.core import baselines as TB
+    from repro_torch.core.costs import (PROFILES, KVStoreModel, MemoryModel,
+                                        RunQueueModel)
+    from repro_torch.core.predictor import LatencyPredictor
+    from repro_torch.serving.cluster import ServingCluster
+    from repro_torch.serving.decode import DecodeConfig
+    from repro_torch.serving.scenarios import (FleetRebalancer,
+                                               ScenarioTrace, handoff_storm)
+    from repro_torch.serving.slo import SLOPolicy
+    from repro_torch.serving.traffic import TrafficProfile, generate_trace
+
+    profile = TrafficProfile(
+        rate_rps=1.0, arrival="bursty", burst_factor=6.0, n_devices=4,
+        context_mix=(("longchat", 0.6), ("triviaqa", 0.4)),
+        policy_mix=(("sparkv", 0.6), ("strong_hybrid", 0.25),
+                    ("local_prefill", 0.15)),
+        max_context=4096, out_len_mix=((16, 0.6), (32, 0.4)),
+        slo_mix=(("interactive", 8.0, 0.6), ("batch", None, 0.4)),
+        prefix_pool=6, prefix_zipf_a=1.2, prefix_frac=0.5)
+    specs = generate_trace(profile, n_requests, seed=seed)
+    mem_cap = 1e9
+    pred = TB._PRED_CACHE[(cfg.name, "jetson-orin")]
+    check(pred.device.type == device.type,
+          f"path E2: the planner lives on {pred.device}, not {device}")
+    print(f"[path E2] ServingCluster({cfg.name}): {n_requests} requests "
+          f"(bursty, seed {seed}) over {specs[-1].arrival_s:.3f} s, 4 "
+          f"devices / 2 APs, WFQ 2 slots, decode batch 8, memory "
+          f"{mem_cap:.3g} B a device, cloud KV store 4 GiB, handoff storm "
+          f"+ FleetRebalancer, refresh every 16 on {device}", flush=True)
+    prints = []
+    for run in (1, 2):
+        refresh = LatencyPredictor(cfg, PROFILES["jetson-orin"],
+                                   device=device)
+        rebalancer = FleetRebalancer(refresh)
+        cluster = ServingCluster(
+            cfg, SparKVConfig(scheduler_mode="engine"), "jetson-orin",
+            "campus-wifi", n_devices=4, n_aps=2, max_concurrency=16,
+            run_queue=RunQueueModel(2, "wfq"),
+            decode=DecodeConfig(max_batch=8),
+            memory=MemoryModel(capacity_bytes=mem_cap),
+            kvstore=KVStoreModel(capacity_bytes=float(4 << 30),
+                                 device_capacity_bytes=float(8 << 30)),
+            slo=SLOPolicy(),
+            scenario=ScenarioTrace(handoffs=handoff_storm(
+                4, 2, t_start_s=5.0, spacing_s=2.0)),
+            rebalancer=rebalancer, predictor=refresh, refresh_every=16)
+        with Clock(pred, "predict_ms", device) as mlp, \
+                Clock(rebalancer, "decide", device) as lp:
+            t0 = time.perf_counter()
+            rep = cluster.run(specs)
+            wall = time.perf_counter() - t0
+        _print_fleet(f"path E2 run {run}", rep)
+        st = cluster.last_sim_stats
+        print(f"[path E2 run {run}] card and host: fleet wall {wall:.6f} s; "
+              f"simulator {st['n_events']} events in {st['wall_s']:.6f} s "
+              f"({st['events_per_s']:.1f} events/s); planner MLP on "
+              f"{pred.device}: {mlp}; rebalancer LP: {lp}", flush=True)
+        mem, scen = rep.memory, rep.scenario
+        store = rep.reuse["store"]
+        print(f"[path E2 run {run}] (simulated) memory: evictions "
+              f"{mem['n_evictions']}, reloads {mem['n_reloads']}; store "
+              f"hits {store['n_hits']} of {store['n_lookups']}; handoffs "
+              f"{scen['n_handoffs']} (+{scen['n_handoff_noop']} no-op), "
+              f"rebalances {scen['n_rebalances']}, LP solves "
+              f"{scen['n_lp_solves']}; refresh fitted {refresh.refreshed}",
+              flush=True)
+        check(mem["n_evictions"] > 0, "path E2: the memory budget forced no "
+              "eviction")
+        check(store["n_hits"] > 0, "path E2: the KV store had no hit")
+        check(scen["n_rebalances"] > 0, "path E2: the rebalancer never ran")
+        check(refresh.refreshed, "path E2: the online refresh never fitted")
+        check(mlp.calls >= n_requests - len(rep.shed),
+              "path E2: fewer planner calls than admitted requests")
+        prints.append(fleet_fingerprint(rep))
+    check(prints[0] == prints[1],
+          "path E2: two runs of the same fleet differ")
+    print(f"[path E2] fingerprints of the two runs equal ({len(prints[0])} "
+          "records)", flush=True)
+
+
+# ----------------------------------------------------------------------------
 
 
 def fail(msg, code=1):
@@ -1010,7 +1273,7 @@ def main():
         check(launches["kv_dequant"] == 2,
               f"path A launched kv_dequant {launches['kv_dequant']} times, "
               "not 2")
-        dequant_routes(kept.pop("server"), kept.pop("context"), device)
+        dequant_routes(kept["server"], kept.pop("context"), device)
         K.reset_launches()
 
         # path B: same width, 4 layers, per-chunk widths
@@ -1033,6 +1296,26 @@ def main():
         # path D: decode attention over path A's cachegen cache
         launches["decode_attention"], perf["decode_attention"] = path_d(
             kept.pop("cache"), cfg.num_heads, att_err, device)
+
+        # path E1: serve_fleet on path A's server, then one load_context a
+        # streaming policy the fleet admitted
+        K.reset_launches()
+        loads = path_e1(kept.pop("server"), kept.pop("cid"), device)
+        check(loads, "path E1: the fleet admitted no streaming policy")
+        for policy, n_streamed, launched in loads:
+            want = 1 if n_streamed else 0
+            check(launched == {"kv_dequant": want, "kv_dequant_mixed": 0},
+                  f"path E1 {policy}: dequant launches {launched}, not "
+                  f"{want} kv_dequant for {n_streamed} streamed chunks")
+        check(any(n for _, n, _ in loads),
+              "path E1: no admitted request streamed a chunk")
+        e1 = dict(K.LAUNCHES)
+        check(e1["kv_dequant"] == sum(1 for _, n, _ in loads if n),
+              f"path E1 launched kv_dequant {e1['kv_dequant']} times")
+        for k in e1:
+            launches[k] += e1[k]
+        # path E2: the standalone fleet with the planner on the card
+        path_e2(cfg, device)
     except SmokeError as e:
         fail(str(e))
 

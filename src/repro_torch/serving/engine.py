@@ -12,6 +12,9 @@ each request then *loads* that context through a policy pipeline
     one kv_dequant launch a request straight into the device cache;
     computed chunks take the exact values.
 
+``serve_fleet`` submits registered contexts to the fleet simulator
+(``serving.cluster.ServingCluster``), planning on this server's device.
+
 ``phase_s`` accumulates the wall seconds of each phase (prefill,
 quantize, huffman_encode, mask, plan, huffman_decode, dequant, decode);
 each phase ends with a device synchronise so its time is its own.
@@ -292,6 +295,50 @@ class SparKVServer:
                 wall_s=time.time() - t_wall)
         finally:
             self.active_requests -= 1
+
+    def serve_fleet(self, jobs: list[tuple[int, float, str]], *,
+                    closed_loop: bool = True, static_util: float = 0.0,
+                    max_concurrency: Optional[int] = None,
+                    link=None, run_queue=None, policy_fn=None,
+                    slo=None, deadline_s: Optional[float] = None,
+                    max_new_tokens: int = 0, decode=None,
+                    tpot_slo_s: Optional[float] = None,
+                    bw_seed: int = 991):
+        """Serve many registered contexts concurrently on one clock.
+
+        jobs: (cid, arrival_s, policy) triples over contexts previously
+        created with register_context(). Timing/energy come from the
+        multi-request cluster (link topology + device servers), the
+        simulator's virtual clock; KV content for any request can still
+        be assembled afterwards with load_context(). The knobs are the
+        reference's (``repro/serving/engine.py::serve_fleet``): a
+        ``RunQueueModel`` as ``run_queue``, a ``policy_fn`` such as
+        ``cluster.telemetry_policy``, an ``slo.SLOPolicy`` as ``slo``
+        with ``deadline_s`` applied to every job, ``max_new_tokens > 0``
+        with an optional ``decode.DecodeConfig`` and ``tpot_slo_s``.
+
+        The cluster plans every admission through the planner cache of
+        ``core.baselines``; the planner MLP is trained here first, on
+        this server's device, so a CPU server's fleet never asks for the
+        card. Returns a FleetReport.
+        """
+        from repro_torch.serving.cluster import RequestSpec, ServingCluster
+        self._ensure_predictor()
+        specs = []
+        for i, (cid, arrival_s, policy) in enumerate(jobs):
+            st = self.contexts[cid]
+            specs.append(RequestSpec(
+                arrival_s=arrival_s, context_len=st.wl.context_len,
+                policy=policy, seed=i, wl=st.wl, deadline_s=deadline_s,
+                max_new_tokens=max_new_tokens, tpot_slo_s=tpot_slo_s))
+        cluster = ServingCluster(
+            self.model.cfg, self.spcfg, self.profile, self.network,
+            capacity=self.capacity,
+            max_concurrency=max_concurrency or self.capacity,
+            closed_loop=closed_loop, static_util=static_util,
+            link=link, run_queue=run_queue, policy_fn=policy_fn,
+            slo=slo, decode=decode, bw_seed=bw_seed, seed=self.seed)
+        return cluster.run(specs)
 
     def _decode(self, st: StoredContext, cache, prompt, max_new):
         """Greedy decode; the next token stays on the device, so the loop

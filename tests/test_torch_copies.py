@@ -13,7 +13,11 @@ COPIES = sorted(
        "compression/huffman.py", "compression/allocate.py",
        "data/__init__.py", "data/workloads.py", "core/chunks.py",
        "core/costs.py", "core/scheduler.py", "core/controller.py",
-       "core/engine.py", "core/baselines.py"])
+       "core/engine.py", "core/baselines.py", "core/lp.py",
+       "core/milp.py", "serving/simcore.py", "serving/resources.py",
+       "serving/kvstore.py", "serving/decode.py", "serving/memory.py",
+       "serving/scenarios.py", "serving/slo.py", "serving/cluster.py",
+       "serving/traffic.py"])
 
 
 def test_copy_list_covers_every_config():

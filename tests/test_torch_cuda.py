@@ -358,3 +358,72 @@ def test_attention_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     with pytest.raises(ValueError):        # 3 query heads per kv head
         DK.decode_attention(_randn(gen, (1, 6, 64), torch.float32, cuda),
                             dk, dk, 10)
+
+
+# ---------------------------------------------------------------------------
+# the fleet stack: the planner MLP on the card
+# ---------------------------------------------------------------------------
+
+def _fleet_fingerprint(report):
+    """The tuple of tests/test_simcore.py::_fleet_fingerprint."""
+    return [(r.spec.arrival_s, r.ttft_s, r.ttlt_s, r.energy_j,
+             r.uplink_share,
+             r.compute_wait_s, r.bytes_streamed, r.policy,
+             tuple(sorted(r.stage_shares.items())))
+            for r in report.records]
+
+
+def test_standalone_fleet_plans_on_card_deterministically(cuda, monkeypatch):
+    """A standalone ServingCluster (N 16, 2 devices, WFQ, a memory budget
+    under the decoding fleet's residency) builds its planner on the card
+    by default, and two runs of the same trace give the same fingerprint."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import baselines as TB
+    from repro_torch.core.costs import MemoryModel, RunQueueModel
+    from repro_torch.serving.cluster import ServingCluster
+    from repro_torch.serving.decode import DecodeConfig
+    from repro_torch.serving.traffic import TrafficProfile, generate_trace
+
+    cfg = get_config("sparkv-qwen3-4b")
+    monkeypatch.delitem(TB._PRED_CACHE, (cfg.name, "jetson-orin"),
+                        raising=False)
+    specs = generate_trace(TrafficProfile(
+        rate_rps=2.0, arrival="poisson", n_devices=2, max_context=2048,
+        out_len_mix=((24, 1.0),)), 16, seed=5)
+    reports = []
+    for _ in range(2):
+        cluster = ServingCluster(
+            cfg, SparKVConfig(scheduler_mode="engine"), "jetson-orin",
+            "campus-wifi", n_devices=2, max_concurrency=8,
+            run_queue=RunQueueModel(2, "wfq"),
+            decode=DecodeConfig(max_batch=4),
+            memory=MemoryModel(capacity_bytes=4e8))
+        reports.append(cluster.run(specs))
+    assert TB._PRED_CACHE[(cfg.name, "jetson-orin")].device.type == "cuda"
+    assert len(reports[0].records) == 16
+    assert reports[0].memory["n_evictions"] > 0
+    assert _fleet_fingerprint(reports[0]) == _fleet_fingerprint(reports[1])
+
+
+def test_serve_fleet_on_a_card_server_plans_on_card(cuda, monkeypatch):
+    """serve_fleet on a server built for the card trains the fleet's
+    planner there."""
+    from repro_torch.core import baselines as TB
+    from repro_torch.core.costs import RunQueueModel
+
+    cfg = get_smoke("sparkv-qwen3-4b", layers=3, d_model=64, heads=4,
+                    d_ff=128, vocab=256)
+    model = build_model(cfg)
+    srv = SparKVServer(model, model.init(0, device=cuda),
+                       SparKVConfig(chunk_tokens=32, q_block=16, kv_block=16,
+                                    quant_group=32),
+                       chunk_tokens=32, device=cuda)
+    cid = srv.register_context(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, 96)))
+    key = (cfg.name, srv.profile)
+    monkeypatch.delitem(TB._PRED_CACHE, key, raising=False)
+    jobs = [(cid, 0.3 * i, p) for i, p in enumerate(
+        ["sparkv", "strong_hybrid", "cachegen", "local_prefill"] * 2)]
+    rep = srv.serve_fleet(jobs, run_queue=RunQueueModel(2, "wfq"))
+    assert len(rep.records) == len(jobs)
+    assert TB._PRED_CACHE[key].device.type == "cuda"
