@@ -48,7 +48,21 @@ Phases, in order; any failure exits non-zero:
      mix of examples/serve_fleet.py on 4 devices and 2 APs, a KV memory
      budget that forces evictions, the cloud KV store, a handoff storm
      with the fleet LP rebalancer and the online predictor refresh on
-     the card; run twice, and the two fleet fingerprints must be equal.
+     the card; run twice, and the two fleet fingerprints must be equal;
+  9. path F: granite-moe-3b-a800m (the MoE family) at full width and
+     depth through SparKVServer, random bf16 weights from a seed; one
+     2048-token context (1024-token chunks, 64 KV chunks of head_dim 64);
+     requests sparkv and local_prefill, 8 new tokens each: the streaming
+     request in exactly one kv_dequant launch, its assembled fp32 cache
+     bit-equal to the plain dequant of the same stored chunks,
+     local_prefill top-1 1.0; then the MoE layers' capacity drop rate
+     over the context's prefill;
+ 10. path G: mamba2-130m (SSM) and zamba2-2.7b (hybrid) at full width and
+     depth, random bf16 weights from a seed: a 2048-token prefill and 8
+     decode steps each, timed with CUDA events; the first step's logits
+     against the 2049-token prefill's last logits (printed), and the same
+     check on an fp32 copy of the weights at 256 tokens (limit 0.15, as
+     tests/test_models.py). Each model is freed before the next is built.
 
 Path E's TTFT, SLO attainment and energy are the fleet simulator's
 virtual clock, labelled "(simulated)"; beside them it prints what the
@@ -813,8 +827,16 @@ def build_server(cfg, spcfg, device, seed):
         seen["n_logits"] = seen.get("n_logits", 0) + len(logits)
         return toks, logits
 
+    assemble = srv.assemble
+
+    def assemble_and_keep(st, streamed):
+        k, v = assemble(st, streamed)
+        seen["assembled"] = (st, list(streamed), k, v)
+        return k, v
+
     srv.load_context = load_and_keep
     srv._decode = decode_and_check
+    srv.assemble = assemble_and_keep
     return srv, seen
 
 
@@ -829,7 +851,7 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
     rng = np.random.default_rng(seed)
     srv, seen = build_server(cfg, spcfg, device, seed)
     if keep is not None:
-        keep["params"], keep["server"] = srv.params, srv
+        keep["params"], keep["server"], keep["seen"] = srv.params, srv, seen
     tokens = rng.integers(0, cfg.vocab_size, size=(1, n_tokens))
     print(f"[{label}] {cfg.name}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff "
@@ -1205,6 +1227,209 @@ def path_e2(cfg, device, *, n_requests=256, seed=42):
 
 
 # ----------------------------------------------------------------------------
+# paths F and G: the MoE, SSM and hybrid families
+# ----------------------------------------------------------------------------
+
+
+def free_card():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def plain_assembly_check(seen, label):
+    """The fp32 cache that load_context assembled (one kv_dequant launch)
+    against the plain version's dequant of the same stored chunks into a
+    copy of the exact cache: bit for bit."""
+    from repro_torch.kernels.kv_dequant import kernel as K
+    from repro_torch.kernels.kv_dequant import ops as KO
+    st, streamed, k, v = seen["assembled"]
+    ct = st.wl.chunk_tokens
+    pk, pv = st.exact_k.clone(), st.exact_v.clone()
+    K.dequant_batch_plain(KO.stage(
+        [q for c in streamed for q in st.encoded[c][2:]],
+        [x[c.l, 0, c.t * ct:(c.t + 1) * ct] for c in streamed
+         for x in (pk, pv)], mixed=False))
+    same = _bits_equal(k, pk) and _bits_equal(v, pv)
+    err = max(_max_err(k, pk), _max_err(v, pv))
+    print(f"[{label}] assembled cache of {len(streamed)} streamed chunks vs "
+          f"the plain dequant of the same stored chunks: bit-equal={same} "
+          f"max_abs_err={err}", flush=True)
+    check(same, f"{label}: the assembled cache differs from the plain "
+          "dequant")
+    return err
+
+
+def moe_drop_rate(srv, tokens, label):
+    """Share of the router's assignments past their expert's capacity,
+    each MoE layer, over one prefill of the context (a second prefill,
+    with each layer's routing counted beside it)."""
+    import torch
+    from repro_torch.models import layers as L
+    inner, dropped = L.moe_block, []
+
+    def counted(cfg, p, x):
+        idx = L.moe_gates(cfg, p, x.reshape(-1, x.shape[-1]))[2]
+        dropped.append(L.moe_dropped(cfg, idx))
+        return inner(cfg, p, x)
+
+    L.moe_block = counted
+    try:
+        tok = torch.as_tensor(tokens, device=srv.device)
+        srv.model.prefill(srv.params, {"tokens": tok})
+    finally:
+        L.moe_block = inner
+    mo = srv.model.cfg.moe
+    n = tokens.shape[1] * mo.experts_per_token
+    cap = L.moe_capacity(srv.model.cfg, tokens.shape[1])
+    print(f"[{label}] MoE prefill of {tokens.shape[1]} tokens: {n} "
+          f"assignments a layer over {mo.num_experts} experts, capacity "
+          f"{cap} a expert; dropped {sum(dropped)} of {n * len(dropped)} "
+          f"({sum(dropped) / (n * len(dropped)):.6f}), per layer min "
+          f"{min(dropped)} max {max(dropped)}", flush=True)
+    check(len(dropped) == srv.model.cfg.num_layers,
+          f"{label}: {len(dropped)} MoE layers routed, not "
+          f"{srv.model.cfg.num_layers}")
+
+
+def path_f(cfg, spcfg, device, *, n_tokens=2048):
+    """A MoE model (granite-moe-3b-a800m) through SparKVServer: sparkv and
+    local_prefill; returns the kv_dequant launches during the path's
+    requests and the largest error of its assembled cache against the
+    plain dequant."""
+    kept, err = {}, 0.0
+    launches = {"kv_dequant": 0, "kv_dequant_mixed": 0}
+    for policy, res, launched, widths in serve_path(
+            "path F", cfg, spcfg, n_tokens, ("sparkv", "local_prefill"),
+            device, keep=kept):
+        want = 1 if res.n_streamed else 0
+        check(launched == {"kv_dequant": want, "kv_dequant_mixed": 0},
+              f"path F {policy}: dequant launches {launched}, not {want} "
+              f"kv_dequant for {res.n_streamed} streamed chunks")
+        if policy == "sparkv":
+            check(res.n_streamed > 0, "path F: sparkv streamed no chunk")
+            err = plain_assembly_check(kept["seen"], "path F")
+        for k in launched:
+            launches[k] += launched[k]
+    moe_drop_rate(kept["server"], kept["context"].tokens, "path F")
+    kept.clear()
+    free_card()
+    return launches, err
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _decode_cache(model, pre, n_tokens, device, dtype):
+    """The decode cache of a prefill, as tests/test_models.py builds it:
+    conv in bf16, state in fp32, the hybrid's attention context and
+    tails in the weights' dtype."""
+    import torch
+    src = pre if model.cfg.family == "ssm" else pre["ssm"]
+    ssm = {"conv": src["conv"].to(torch.bfloat16),
+           "state": src["state"].float()}
+    if model.cfg.family == "ssm":
+        return ssm
+    from repro_torch.models import hybrid
+    cache = hybrid.init_cache(model.cfg, 1, n_tokens, device=device,
+                              dtype=dtype)
+    cache.update(ssm=ssm, attn_k=pre["attn_k"], attn_v=pre["attn_v"])
+    return cache
+
+
+def decode_vs_prefill(model, params, tokens, n, device):
+    """|decode after an n-token prefill - the (n+1)-token prefill's last
+    logits|, largest over the vocab."""
+    import torch
+    _, pre = model.prefill(params, {"tokens": tokens[:, :n]})
+    cache = _decode_cache(model, pre, n, device, params["emb"].dtype)
+    logits, _ = model.decode_step(params, cache, tokens[:, n], n)
+    ref, _ = model.prefill(params, {"tokens": tokens[:, :n + 1]})
+    check(bool(torch.isfinite(logits.float()).all()),
+          "decode logits not finite")
+    return float((logits.float() - ref.float()).abs().max())
+
+
+def path_g(cfg, device, *, n_tokens=2048, new=8, check_tokens=256, seed=0):
+    """A 2048-token prefill and `new` greedy decode steps of one SSM or
+    hybrid model, timed with CUDA events; decode against prefill in bf16
+    (printed) and on an fp32 copy of the weights at check_tokens (limit
+    0.15)."""
+    import torch
+    from repro_torch.models import build_model
+    arch = cfg.name
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          size=(1, n_tokens + 1)),
+                             device=device)
+    print(f"[path G] {arch} ({cfg.family}): {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, ssm state {cfg.ssm.state_dim}, head_dim "
+          f"{cfg.ssm.head_dim}, chunk {cfg.ssm.chunk_len}"
+          + (f", shared attention every {cfg.attn_every} ({cfg.num_heads}"
+             f"/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff})"
+             if cfg.family == "hybrid" else "")
+          + f"; {n_params / 1e9:.3f}B params bf16", flush=True)
+
+    def timed(fn):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        e.synchronize()
+        return out, s.elapsed_time(e)
+
+    inputs = {"tokens": tokens[:, :n_tokens]}
+    model.prefill(params, inputs)                       # warm-up
+    (logits, pre), pre_ms = timed(lambda: model.prefill(params, inputs))
+    cache = _decode_cache(model, pre, n_tokens, device, torch.bfloat16)
+    tok, step_ms, diff = tokens[:, n_tokens], [], None
+    for i in range(new):
+        (lg, cache), ms = timed(
+            lambda: model.decode_step(params, cache, tok, n_tokens + i))
+        step_ms.append(ms)
+        check(bool(torch.isfinite(lg.float()).all()),
+              f"path G {arch}: decode step {i} not finite")
+        if i == 0:
+            ref, _ = model.prefill(params, {"tokens": tokens})
+            diff = float((lg.float() - ref.float()).abs().max())
+            del ref
+        tok = lg.float()[:, :cfg.vocab_size].argmax(-1)
+    del pre, cache
+    print(f"[path G] {arch} bf16: prefill {n_tokens} tokens {pre_ms:.3f} ms "
+          f"(CUDA events, second call); decode {new} steps "
+          f"{', '.join(f'{t:.3f}' for t in step_ms)} ms, median "
+          f"{statistics.median(step_ms):.3f} ms a step; |decode - "
+          f"prefill({n_tokens + 1})| {diff:.6f} (printed, not limited)",
+          flush=True)
+    p32 = _tree(lambda t: t.float(), params)
+    del params
+    d32 = decode_vs_prefill(model, p32, tokens, check_tokens, device)
+    print(f"[path G] {arch} fp32 copy: |decode - prefill({check_tokens + 1})|"
+          f" {d32:.6f} (limit 0.15)", flush=True)
+    check(d32 < 0.15, f"path G {arch}: fp32 decode/prefill mismatch {d32}")
+    del p32
+    free_card()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ----------------------------------------------------------------------------
 
 
 def fail(msg, code=1):
@@ -1316,6 +1541,19 @@ def main():
             launches[k] += e1[k]
         # path E2: the standalone fleet with the planner on the card
         path_e2(cfg, device)
+        kept.clear()
+        free_card()
+
+        # path F: the MoE family through the serving loop
+        f_launches, f_err = path_f(get_config("granite-moe-3b-a800m"),
+                                   SparKVConfig(chunk_tokens=1024), device)
+        for k in f_launches:
+            launches[k] += f_launches[k]
+        perf["kv_dequant"]["max_abs_err"] = max(
+            perf["kv_dequant"]["max_abs_err"], f_err)
+        # path G: the SSM and hybrid families on their own entry points
+        for arch in ("mamba2-130m", "zamba2-2.7b"):
+            path_g(get_config(arch), device)
     except SmokeError as e:
         fail(str(e))
 

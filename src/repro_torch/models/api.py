@@ -1,11 +1,14 @@
-"""Unified model facade (PyTorch), dense family.
+"""Unified model facade (PyTorch): the dense, MoE, SSM and hybrid
+families.
 
   init(generator, device)              -- a param dict drawn from a seed
+  loss(params, batch)                  -- mean next-token xent (+ MoE aux),
+                                          forward only
   prefill(params, inputs)              -- inference-prefill target
   decode_step(params, cache, token, pos)
   init_cache(batch, capacity, device)
 
-Other families of ``repro.models.api`` are not ported yet.
+The enc-dec family (Whisper) is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, mamba_lm, transformer
 
 
 @dataclasses.dataclass
@@ -40,6 +43,9 @@ class Model:
                              f"{dev}")
         return L.init_params(self.param_defs(), generator, dev)
 
+    def loss(self, params, batch):
+        return self._mod.loss_fn(self.cfg, params, batch)
+
     def prefill(self, params, inputs):
         return self._mod.prefill(self.cfg, params, inputs["tokens"])
 
@@ -51,12 +57,17 @@ class Model:
                                     device=resolve(device))
 
 
-_FAMILY_MODULES = {"dense": transformer}
+_FAMILY_MODULES = {
+    "dense": transformer,
+    "moe": transformer,
+    "hybrid": hybrid,
+    "ssm": mamba_lm,
+}
 
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILY_MODULES:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            "queue 1, item 10)")
+            "queue 1, item 5: Whisper)")
     return Model(cfg=cfg, _mod=_FAMILY_MODULES[cfg.family])

@@ -1,4 +1,4 @@
-"""Shared model building blocks, dense subset (PyTorch).
+"""Shared model building blocks (PyTorch).
 
 Port of ``repro/models/layers.py``. Tensors keep the reference layouts:
 activations (b, s, d), heads (b, s, h, hd), stacked weights as in the
@@ -7,7 +7,8 @@ on the card); softmax statistics in fp32. The attention is the
 reference's chunked flash attention (a loop over kv blocks with a
 running softmax), so a long prefill never holds an S x S score matrix.
 The sharding constraints of the reference are the identity on one device
-and are dropped.
+and are dropped, and so is its shard_map MoE dispatch
+(``moe_block_sharded``), which runs only on a multi-device mesh.
 """
 from __future__ import annotations
 
@@ -261,3 +262,120 @@ def mlp_block(cfg, p, x):
     else:
         h = act(up)
     return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+# ----------------------------------------------------------------------------
+# Mixture of Experts (sort-based, dropping, GShard-capacity)
+# ----------------------------------------------------------------------------
+
+
+def moe_defs(cfg, *, stacked: int = 0) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    pre = (stacked,) if stacked else ()
+    down_scale = 0.02 / np.sqrt(2 * max(cfg.num_layers, 1))
+    return {
+        "router": ParamDef(pre + (d, e)),
+        "w_up": ParamDef(pre + (e, d, f)),
+        "w_gate": ParamDef(pre + (e, d, f)),
+        "w_down": ParamDef(pre + (e, f, d), scale=down_scale),
+    }
+
+
+def moe_capacity(cfg, n_tokens: int) -> int:
+    """Slots an expert takes: capacity_factor * t * k / e, rounded up to a
+    multiple of 4, at least 4."""
+    mo = cfg.moe
+    cap = int(np.ceil(mo.capacity_factor * n_tokens * mo.experts_per_token
+                      / mo.num_experts))
+    return max(4, -(-cap // 4) * 4)
+
+
+def moe_block(cfg, p, x):
+    """x: (b, s, d) -> (y, aux_loss). One device: the reference's local
+    dispatch (its shard_map path runs only under a multi-device mesh)."""
+    return moe_block_local(cfg, p, x)
+
+
+def moe_gates(cfg, p, xf):
+    """Router of (t, d) tokens -> (probs (t, e) fp32, gate values (t, k)
+    renormalised, expert ids (t, k)). The logits are rounded to the
+    params' dtype before the fp32 softmax, as the reference's einsum
+    rounds them; top-k ties go to the lower expert, as lax.top_k's do."""
+    k = cfg.moe.experts_per_token
+    probs = torch.softmax((xf @ p["router"]).float(), dim=-1)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    gate_vals, gate_idx = gate_vals[:, :k], gate_idx[:, :k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def moe_dropped(cfg, gate_idx) -> int:
+    """Assignments past their expert's capacity: which ones the stable
+    sort decides, how many only the per-expert counts."""
+    counts = torch.bincount(gate_idx.reshape(-1),
+                            minlength=cfg.moe.num_experts)
+    cap = moe_capacity(cfg, gate_idx.shape[0])
+    return int((counts - cap).clamp(min=0).sum())
+
+
+def moe_block_local(cfg, p, x):
+    """Single-device sort-based dispatch with capacity.
+
+    Assignments are sorted by expert (stable), and the ones past an
+    expert's capacity are dropped. The combine sums each token's k gated
+    expert outputs in fp32 in ascending expert order, one add after the
+    other: deterministic on the card (no atomics), and the order of the
+    reference's scatter-add."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e, k = mo.num_experts, mo.experts_per_token
+    xf = x.reshape(t, d)
+    dev = x.device
+    probs, gate_vals, gate_idx = moe_gates(cfg, p, xf)
+
+    # load-balancing aux loss (Switch-style)
+    assign_frac = torch.bincount(gate_idx.reshape(-1), minlength=e).float() \
+        / (t * k)
+    aux = e * torch.sum(probs.mean(0) * assign_frac)
+
+    # flatten (t, k) assignments and sort by expert
+    tk = t * k
+    eids = gate_idx.reshape(tk)
+    tok = torch.arange(t, device=dev).repeat_interleave(k)
+    order = torch.argsort(eids, stable=True)
+    se, st, sg = eids[order], tok[order], gate_vals.reshape(tk)[order]
+
+    counts = torch.bincount(se, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(tk, device=dev) - starts[se]
+
+    cap = moe_capacity(cfg, t)
+    keep = pos < cap
+    pos_c = torch.where(keep, pos, cap)        # dropped rows: slot cap
+
+    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=dev)
+    buf[se, pos_c] = torch.where(keep[:, None], xf[st], 0)
+    buf = buf[:, :cap]
+
+    act = act_fn(cfg.activation)
+    up = torch.bmm(buf, p["w_up"])
+    gate = torch.bmm(buf, p["w_gate"])
+    out = torch.bmm(act(gate) * up, p["w_down"])              # (e, cap, d)
+
+    # the reference gathers slot cap of a cap-long axis for a dropped row
+    # (JAX clamps the index); the keep mask zeroes those rows either way
+    vals = out[se, pos_c.clamp(max=cap - 1)]
+    vals = torch.where(keep[:, None], vals, 0)
+    contrib = vals.float() * sg[:, None]                      # (tk, d)
+    # a token's assignments lie in the sorted order by ascending expert:
+    # gather them back per token in that order and add them in turn
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(tk, device=dev)
+    slots = inv.reshape(t, k).sort(dim=1).values
+    y = torch.zeros((t, d), dtype=torch.float32, device=dev)
+    for j in range(k):
+        y = y + contrib[slots[:, j]]
+    return y.reshape(b, s, d).to(x.dtype), aux

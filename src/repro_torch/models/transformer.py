@@ -1,9 +1,8 @@
-"""Decoder-only transformer LM, dense family (PyTorch).
+"""Decoder-only transformer LM, dense and MoE families (PyTorch).
 
 Port of ``repro/models/transformer.py``. The reference scans stacked
 layer params with ``lax.scan``; here an eager loop indexes layer l of
-each stacked tensor. The MoE family is not ported yet (ROADMAP.md,
-queue 1, item 10).
+each stacked tensor. The loss is forward only (no gradients).
 """
 from __future__ import annotations
 
@@ -26,9 +25,12 @@ def param_defs(cfg) -> dict:
             "attn_norm": L.norm_defs(cfg, cfg.d_model, prefix_shape=(n,)),
             "mlp_norm": L.norm_defs(cfg, cfg.d_model, prefix_shape=(n,)),
             "attn": L.attention_defs(cfg, stacked=n),
-            "mlp": L.mlp_defs(cfg, stacked=n),
         },
     }
+    if cfg.moe is not None:
+        defs["blocks"]["moe"] = L.moe_defs(cfg, stacked=n)
+    else:
+        defs["blocks"]["mlp"] = L.mlp_defs(cfg, stacked=n)
     if not cfg.tie_embeddings:
         defs["unemb"] = ParamDef((cfg.d_model, cfg.padded_vocab))
     return defs
@@ -79,32 +81,70 @@ def _block(cfg, bp, x, positions, *, causal=True, kv_cache=None, pos=None):
         new_kv = (tail_k, tail_v)
     x = x + L.attention_out(bp["attn"], o)
     h = L.apply_norm(cfg, x, bp["mlp_norm"])
-    x = x + L.mlp_block(cfg, bp["mlp"], h)
-    return x, new_kv, 0.0
+    if cfg.moe is not None:
+        y, aux = L.moe_block(cfg, bp["moe"], h)
+    else:
+        y, aux = L.mlp_block(cfg, bp["mlp"], h), 0.0
+    return x + y, new_kv, aux
 
 
 def forward(cfg, params, tokens, *, collect_kv: bool = False):
     """Full causal forward. tokens: (b, s) int.
 
     Returns (x_final, (k_stack, v_stack) | None, aux_sum); the stacks are
-    (L, b, s, hkv, hd). x_final is post-final-norm."""
+    (L, b, s, hkv, hd). x_final is post-final-norm; aux_sum is the MoE
+    router loss summed over layers (0.0 for the dense family)."""
     x = params["emb"][tokens]
     positions = torch.arange(tokens.shape[1], device=x.device)
     ks, vs = [], []
+    aux = 0.0
     for l in range(cfg.num_layers):
-        x, (k, v), _ = _block(cfg, layer_params(params["blocks"], l), x,
+        x, (k, v), a = _block(cfg, layer_params(params["blocks"], l), x,
                               positions)
+        aux = aux + a
         if collect_kv:
             ks.append(k)
             vs.append(v)
     x = L.apply_norm(cfg, x, params["final_norm"])
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return x, kvs, 0.0
+    return x, kvs, aux
 
 
 def unembed(cfg, params, x):
     w = params["emb"].T if cfg.tie_embeddings else params["unemb"]
     return torch.einsum("bsd,dv->bsv", x, w)
+
+
+def softmax_xent(cfg, params, x, labels, mask, *, chunk: int = 0):
+    """Cross-entropy summed over the masked positions, unembedding
+    `chunk` positions at a time (O(chunk * V) memory)."""
+    chunk = chunk or cfg.loss_chunk
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, x.shape[1], chunk):
+        logits = unembed(cfg, params, x[:, i:i + chunk]).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, labels[:, i:i + chunk, None])[..., 0]
+        tot = tot + torch.sum((lse - lab) * mask[:, i:i + chunk])
+    return tot
+
+
+def next_token_batch(batch):
+    """{"tokens": (b, s+1)} -> (inputs, labels, mask); labels < 0 are
+    masked out."""
+    tokens = batch["tokens"]
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    return inp, labels.clamp(min=0), (labels >= 0).float()
+
+
+def loss_fn(cfg, params, batch):
+    """batch: {"tokens": (b, s+1)} -> scalar mean xent (+ MoE aux)."""
+    inp, labels, mask = next_token_batch(batch)
+    x, _, aux = forward(cfg, params, inp)
+    loss = softmax_xent(cfg, params, x, labels, mask) \
+        / torch.clamp(mask.sum(), min=1.0)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_coef * aux / cfg.num_layers
+    return loss
 
 
 def prefill(cfg, params, tokens):

@@ -180,6 +180,68 @@ def test_serving_on_card_goes_through_kernels(cuda, sched):
     assert _same_bits(cache["k"].cpu(), ck.to(torch.bfloat16))
 
 
+def test_moe_served_on_card_through_one_dequant_launch(cuda):
+    """granite-moe-3b-a800m's smoke config served on the card: a cachegen
+    request dequantizes every streamed chunk (head_dim 16) in one
+    kv_dequant launch, bit-equal to a CPU server's assembly of the same
+    stored context; local_prefill decodes what the exact cache decodes."""
+    cfg = get_smoke("granite-moe-3b-a800m", layers=3, d_model=64, heads=4,
+                    d_ff=128, vocab=256)
+    spcfg = SparKVConfig(chunk_tokens=32, q_block=16, kv_block=16,
+                         quant_group=32)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    srv = SparKVServer(model, params, spcfg, chunk_tokens=32, device=cuda)
+    cid = srv.register_context(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, 96)))
+    K.reset_launches()
+    _, res = srv.load_context(cid, policy="cachegen")
+    assert K.LAUNCHES == {"kv_dequant": 1, "kv_dequant_mixed": 0}
+    st = srv.contexts[cid]
+    streamed = sorted(res.engine.streamed_set)
+    gk, gv = srv.assemble(st, streamed)
+    cpu = SparKVServer(model, params, spcfg, chunk_tokens=32, device="cpu")
+    cst = type(st)(tokens=st.tokens, exact_k=st.exact_k.cpu(),
+                   exact_v=st.exact_v.cpu(), encoded=st.encoded, wl=st.wl,
+                   n_chunks=st.n_chunks)
+    ck, cv = cpu.assemble(cst, streamed)
+    assert _same_bits(gk.cpu(), ck) and _same_bits(gv.cpu(), cv)
+    res = srv.generate(cid, np.arange(4), max_new=8, policy="local_prefill")
+    assert res.top1_agreement == 1.0
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_moe_block_on_card_matches_cpu(cuda, capacity_factor):
+    """The MoE block on the card against the same function on the CPU, in
+    fp32 with TF32 off: the same routing and drops, outputs equal up to
+    fp32 summation order in the expert matmuls (atol 1e-5 on outputs of
+    magnitude ~0.1), the router loss within 1e-6."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+    cfg = get_smoke("granite-moe-3b-a800m", d_model=64, d_ff=128)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor))
+    gen = torch.Generator().manual_seed(0)
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    p = {"router": torch.randn((d, e), generator=gen) * 0.1,
+         "w_up": torch.randn((e, d, f), generator=gen) * 0.1,
+         "w_gate": torch.randn((e, d, f), generator=gen) * 0.1,
+         "w_down": torch.randn((e, f, d), generator=gen) * 0.1}
+    x = torch.randn((2, 32, d), generator=gen)
+    y, aux = L.moe_block_local(cfg, p, x)
+    gp = {k: v.to(cuda) for k, v in p.items()}
+    gy, gaux = L.moe_block_local(cfg, gp, x.to(cuda))
+    assert torch.allclose(gy.cpu(), y, atol=1e-5, rtol=0)
+    assert abs(float(gaux) - float(aux)) < 1e-6
+    idx = L.moe_gates(cfg, p, x.reshape(64, d))[2]
+    gidx = L.moe_gates(cfg, gp, x.to(cuda).reshape(64, d))[2]
+    assert torch.equal(gidx.cpu(), idx)
+    assert L.moe_dropped(cfg, gidx) == L.moe_dropped(cfg, idx)
+    if capacity_factor < 1:           # 8 slots under a mean load of 16
+        assert L.moe_dropped(cfg, idx) > 0
+
+
 # attention tolerances of tests/test_kernels.py, compared in fp32, scaled
 # down where the reference's largest magnitude is under 1 (long random
 # caches average their values towards 0)

@@ -35,7 +35,9 @@ def _blocked(name: str) -> bool:
 
 def test_port_imports_with_jax_and_reference_blocked():
     mods = _port_modules()
-    assert "repro_torch.kernels.kv_dequant.kernel" in mods
+    assert {"repro_torch.kernels.kv_dequant.kernel",
+            "repro_torch.models.ssm", "repro_torch.models.mamba_lm",
+            "repro_torch.models.hybrid"} <= set(mods)
     code = f"""
 import sys
 BLOCKED = {BLOCKED!r}

@@ -128,6 +128,17 @@ def _bits(a):
     ("attention", "cachegen"), ("attention", "sparkv")])
 def test_load_context_bit_identical(servers, sched, policy, monkeypatch):
     jsrv, tsrv, cid = servers[sched]
+    streamed = _check_load_bit_identical(jsrv, tsrv, cid, policy,
+                                         monkeypatch)
+    if sched == "attention":
+        assert len({q.bits for c in streamed
+                    for q in jsrv.contexts[cid].encoded[c][2:]}) > 1
+
+
+def _check_load_bit_identical(jsrv, tsrv, cid, policy, monkeypatch):
+    """Both servers load one stored context with one planner: the same
+    plan, and the same fp32 and bf16 caches bit for bit. Returns the
+    streamed chunks."""
     key = (tsrv.model.cfg.name, tsrv.profile)
     tsrv._ensure_predictor()
     stub = FrozenPlanner(TB._PRED_CACHE[key])
@@ -142,8 +153,6 @@ def test_load_context_bit_identical(servers, sched, policy, monkeypatch):
     if policy != "local_prefill":
         assert streamed
     jst, tst = jsrv.contexts[cid], tsrv.contexts[cid]
-    if sched == "attention":
-        assert len({q.bits for c in streamed for q in jst.encoded[c][2:]}) > 1
     jk, jv = _reference_fp32(jsrv, jst, streamed)
     tk, tv = tsrv.assemble(tst, streamed)
     assert np.array_equal(tk.numpy().view(np.uint32), jk.view(np.uint32))
@@ -152,6 +161,7 @@ def test_load_context_bit_identical(servers, sched, policy, monkeypatch):
         assert np.array_equal(_bits(np.asarray(jcache[name])),
                               tcache[name].view(torch.int16).numpy()
                               .view(np.uint16))
+    return streamed
 
 
 @pytest.fixture(scope="module")
@@ -213,3 +223,74 @@ def test_serve_cli_on_cpu():
     assert "registered context 0 on cpu" in out.stdout
     for policy in ("sparkv", "strong_hybrid", "cachegen", "local_prefill"):
         assert policy in out.stdout
+
+
+# ----------------------------------------------------------------------------
+# the MoE family through the same server
+# ----------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def moe_servers():
+    """granite-moe-3b-a800m's smoke config (8 experts, top-2, head_dim
+    16) in both packages on the same bf16 weights: the reference's server
+    registers a context; the port's server holds that stored context
+    (cid 0) and registers the same tokens itself (cid 1)."""
+    jcfg = jget_smoke("granite-moe-3b-a800m", **ARCH)
+    jm = jbuild(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tparams = convert_params(jax.tree.map(np.asarray, jparams), device="cpu")
+    tm = build_model(get_smoke("granite-moe-3b-a800m", **ARCH))
+    jsrv = JServer(jm, jparams, JSparKVConfig(**SP), chunk_tokens=32)
+    ctx = np.random.default_rng(0).integers(0, jcfg.vocab_size, size=(1, 96))
+    cid = jsrv.register_context(ctx)
+    tsrv = SparKVServer(tm, tparams, SparKVConfig(**SP), chunk_tokens=32,
+                        device="cpu")
+    tsrv.contexts[cid] = _port_context(jsrv.contexts[cid])
+    tsrv._next_id = cid + 1
+    own = tsrv.register_context(ctx)
+    return jsrv, tsrv, cid, own
+
+
+@pytest.mark.parametrize("policy", ["sparkv", "cachegen", "local_prefill"])
+def test_moe_load_context_bit_identical(moe_servers, policy, monkeypatch):
+    jsrv, tsrv, cid, _ = moe_servers
+    _check_load_bit_identical(jsrv, tsrv, cid, policy, monkeypatch)
+
+
+def test_moe_registration_matches_reference(moe_servers):
+    """The port's own registration of the same tokens on the same bf16
+    weights. Layer 0's exact KV (embedding, norm, projections, RoPE) is
+    bit-equal to the reference's, and so are its quantized chunks.
+    Deeper layers pass through the MoE blocks, where XLA fuses bf16
+    elementwise chains and rounds once where torch rounds after each op:
+    their KV differ by bf16 ulps (measured 7.8e-3, two ulps of a value in
+    [0.5, 1), on values up to 0.74); the bound is test_torch_models.py's
+    bf16 bound, 1.6e-2."""
+    jsrv, tsrv, cid, own = moe_servers
+    jst, tst = jsrv.contexts[cid], tsrv.contexts[own]
+    for name in ("exact_k", "exact_v"):
+        j, t = getattr(jst, name), getattr(tst, name).numpy()
+        assert np.array_equal(t[0].view(np.uint32), j[0].view(np.uint32))
+        np.testing.assert_allclose(t, j, atol=1.6e-2, rtol=0)
+    for c, (_, _, jqk, jqv) in jst.encoded.items():
+        if c.l == 0:
+            tqk, tqv = tst.encoded[Chunk(*c)][2:]
+            assert np.array_equal(tqk.codes, jqk.codes)
+            assert np.array_equal(tqv.codes, jqv.codes)
+
+
+@pytest.mark.parametrize("policy", ["sparkv", "cachegen", "local_prefill"])
+def test_moe_serve(moe_servers, policy):
+    """The port serves its own MoE context: every chunk streamed or
+    computed, finite logits, and local_prefill decodes exactly what the
+    exact cache decodes (deterministic combine)."""
+    _, tsrv, _, own = moe_servers
+    prompt = np.random.default_rng(1).integers(0, 256, size=4)
+    res = tsrv.generate(own, prompt, max_new=8, policy=policy, seed=1)
+    assert res.n_streamed + res.n_computed == tsrv.contexts[own].n_chunks
+    assert np.isfinite(res.mean_kl)
+    if policy == "local_prefill":
+        assert res.n_streamed == 0 and res.top1_agreement == 1.0
+    else:
+        assert res.n_streamed > 0
