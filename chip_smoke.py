@@ -41,8 +41,8 @@ Phases, in order; any failure exits non-zero:
      jobs, seeded Poisson arrivals, the policies sparkv, strong_hybrid,
      cachegen and local_prefill mixed, a 2-slot WFQ run queue, SLO
      admission with a deadline and 8 decoded tokens a request; then one
-     load_context for each streaming policy the fleet admitted, each in
-     exactly one kv_dequant launch;
+     load_context of a streaming policy the fleet admitted (sparkv where
+     it did), in exactly one kv_dequant launch;
   8. path E2: a standalone ServingCluster at sparkv-qwen3-4b's width
      with the planner trained on the card: 256 requests of the traffic
      mix of examples/serve_fleet.py on 4 devices and 2 APs, a KV memory
@@ -62,7 +62,23 @@ Phases, in order; any failure exits non-zero:
      decode steps each, timed with CUDA events; the first step's logits
      against the 2049-token prefill's last logits (printed), and the same
      check on an fp32 copy of the weights at 256 tokens (limit 0.15, as
-     tests/test_models.py). Each model is freed before the next is built.
+     tests/test_models.py). Each model is freed before the next is built;
+ 11. path H: whisper-tiny (enc-dec) at full width and depth, random bf16
+     weights: prefill (encode + cross-K/V) of 4 x 1500 frames and 32
+     greedy decode steps, CUDA events; 16 teacher-forced decode steps
+     against decode_train's logits on an fp32 copy (limit 0.15) and in
+     bf16 (printed);
+ 12. path T1: qwen2.5-3b trained at full width and depth (bf16 params,
+     fp32 moments, remat "full"): 6 build_train_step steps on data_batch
+     at 2 x 1024 tokens, loss, grad norm, lr and ms a step (CUDA events),
+     peak memory, tokens/s and model FLOP/s; loss and grad norm finite,
+     params changed; then microbatches=2 against 1 on the first batch
+     (loss within 5e-3, params within 2e-2, tests/test_training.py);
+ 13. path T2: whisper-tiny's train_loop at 4 x 1500 frames, 12 steps,
+     a checkpoint every 4, uninterrupted and with a failure injected at
+     step 7 and a restart from the last commit, under deterministic
+     algorithms: the final params and moments bit-equal; the checkpoint
+     write and restore seconds.
 
 Path E's TTFT, SLO attainment and energy are the fleet simulator's
 virtual clock, labelled "(simulated)"; beside them it prints what the
@@ -604,12 +620,12 @@ def path_c(cfg, params, err, device, *, n_tokens=8192, seed=0):
     from repro_torch.kernels.block_sparse_attn import ops as BO
     from repro_torch.kernels.block_sparse_attn.ref import block_mask_dense
     from repro_torch.models import layers as L
-    from repro_torch.models.transformer import layer_params
+    from repro_torch.models.transformer import unstack
 
     rng = np.random.default_rng(seed)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                           size=(1, n_tokens)), device=device)
-    bp = layer_params(params["blocks"], 0)
+    bp = unstack(params["blocks"])[0]
     h = L.apply_norm(cfg, params["emb"][tokens], bp["attn_norm"])
     q, k, v = L.attention_qkv(cfg, bp["attn"], h,
                               torch.arange(n_tokens, device=device))
@@ -1050,8 +1066,9 @@ def _print_fleet(label, rep):
 
 def path_e1(srv, cid, device, *, n_jobs=32, rate_rps=2.0, seed=0):
     """SparKVServer.serve_fleet on path A's server and context, then one
-    load_context for each streaming policy the fleet admitted; returns
-    (policy, streamed chunks, kv_dequant launches) a load."""
+    load_context of a streaming policy the fleet admitted (sparkv where
+    it did); returns (policy, streamed chunks, kv_dequant launches) a
+    load."""
     from repro_torch.core import baselines as TB
     from repro_torch.core.costs import RunQueueModel
     from repro_torch.kernels.kv_dequant import kernel as K
@@ -1085,9 +1102,11 @@ def path_e1(srv, cid, device, *, n_jobs=32, rate_rps=2.0, seed=0):
           "admitted requests")
     planner_call_split(pred, srv.contexts[cid].wl, device)
 
-    admitted = sorted({r.policy for r in rep.records} - {"local_prefill"})
+    # one load, sparkv's where the fleet admitted it: each load spends
+    # tens of seconds in host Huffman decode (PERF.md section 4)
+    streaming = sorted({r.policy for r in rep.records} - {"local_prefill"})
     loads = []
-    for policy in admitted:
+    for policy in ["sparkv"] if "sparkv" in streaming else streaming[:1]:
         before = dict(K.LAUNCHES)
         phases = dict(srv.phase_s)
         t0 = time.perf_counter()
@@ -1319,6 +1338,19 @@ def path_f(cfg, spcfg, device, *, n_tokens=2048):
     return launches, err
 
 
+def cuda_timed(fn):
+    """(fn(), ms between CUDA events recorded on the stream before and
+    after it)."""
+    import torch
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
+
+
 def _tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree(fn, v) for k, v in tree.items()}
@@ -1379,22 +1411,13 @@ def path_g(cfg, device, *, n_tokens=2048, new=8, check_tokens=256, seed=0):
              if cfg.family == "hybrid" else "")
           + f"; {n_params / 1e9:.3f}B params bf16", flush=True)
 
-    def timed(fn):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = fn()
-        e.record()
-        e.synchronize()
-        return out, s.elapsed_time(e)
-
     inputs = {"tokens": tokens[:, :n_tokens]}
     model.prefill(params, inputs)                       # warm-up
-    (logits, pre), pre_ms = timed(lambda: model.prefill(params, inputs))
+    (logits, pre), pre_ms = cuda_timed(lambda: model.prefill(params, inputs))
     cache = _decode_cache(model, pre, n_tokens, device, torch.bfloat16)
     tok, step_ms, diff = tokens[:, n_tokens], [], None
     for i in range(new):
-        (lg, cache), ms = timed(
+        (lg, cache), ms = cuda_timed(
             lambda: model.decode_step(params, cache, tok, n_tokens + i))
         step_ms.append(ms)
         check(bool(torch.isfinite(lg.float()).all()),
@@ -1421,12 +1444,265 @@ def path_g(cfg, device, *, n_tokens=2048, new=8, check_tokens=256, seed=0):
     free_card()
 
 
+# ----------------------------------------------------------------------------
+# paths H, T1 and T2: Whisper, training, checkpoints and fault restart
+# ----------------------------------------------------------------------------
+
+
+def _max_diff(a, b):
+    """Largest |a - b| over two same-shaped tensors, in fp32, a slice at a
+    time (no full-size fp32 temporaries of a multi-GB leaf)."""
+    worst = 0.0
+    n = 1 << 26
+    for x, y in zip(a.reshape(-1).split(n), b.reshape(-1).split(n)):
+        worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return worst
+
+
+def path_h(cfg, device, *, batch=4, n_frames=1500, new=32, check_steps=16,
+           seed=0):
+    """whisper-tiny at full width and depth, random bf16 weights: prefill
+    (encode + cross-K/V) of `batch` x `n_frames` frames and `new` greedy
+    decode steps, timed with CUDA events; then `check_steps`
+    teacher-forced decode steps against decode_train's logits at the same
+    positions, on an fp32 copy of the weights (limit 0.15) and in bf16
+    (printed)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec as E
+    from repro_torch.models import transformer as T
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.normal(size=(
+        batch, n_frames, cfg.d_model)).astype(np.float32) * 0.1).to(
+            torch.bfloat16).to(device)
+    print(f"[path H] {cfg.name} (encdec): {cfg.num_layers} encoder + "
+          f"{cfg.dec_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab}), dec_len "
+          f"{cfg.dec_len}; {n_params / 1e6:.3f}M params bf16; batch {batch} "
+          f"x {n_frames} frames", flush=True)
+    inputs = {"frames": frames}
+    model.prefill(params, inputs)                       # warm-up
+    pf, pre_ms = cuda_timed(lambda: model.prefill(params, inputs))
+    check(tuple(pf["cross_k"].shape) == (cfg.dec_layers, batch, n_frames,
+                                         cfg.num_kv_heads,
+                                         cfg.resolved_head_dim),
+          f"path H: cross-K/V of shape {tuple(pf['cross_k'].shape)}")
+    cache = dict(model.init_cache(batch, n_frames, device=device), **pf)
+    tok = torch.zeros(batch, dtype=torch.int64, device=device)
+    step_ms = []
+    for i in range(new):
+        (lg, cache), ms = cuda_timed(
+            lambda: model.decode_step(params, cache, tok, i))
+        step_ms.append(ms)
+        check(bool(torch.isfinite(lg.float()).all()),
+              f"path H: decode step {i} not finite")
+        tok = lg.float()[:, :cfg.vocab_size].argmax(-1)
+    print(f"[path H] bf16: prefill {pre_ms:.3f} ms (CUDA events, second "
+          f"call); {new} greedy decode steps, median "
+          f"{statistics.median(step_ms):.3f} ms a step (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f})", flush=True)
+    del cache, pf
+
+    dec = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       size=(batch, check_steps)),
+                          device=device)
+
+    def decode_vs_teacher_forced(p, x, dtype):
+        ref = T.unembed(cfg, p, E.decode_train(cfg, p, E.encode(cfg, p, x),
+                                               dec)).float()
+        c = dict(E.init_cache(cfg, batch, n_frames, device=device,
+                              dtype=dtype),
+                 **model.prefill(p, {"frames": x}))
+        worst = 0.0
+        for i in range(check_steps):
+            lg, c = model.decode_step(p, c, dec[:, i], i)
+            worst = max(worst, float((lg.float() - ref[:, i]).abs().max()))
+        return worst
+
+    d16 = decode_vs_teacher_forced(params, frames, torch.bfloat16)
+    p32 = _tree(lambda t: t.float(), params)
+    del params
+    d32 = decode_vs_teacher_forced(p32, frames.float(), torch.float32)
+    print(f"[path H] |decode - decode_train| over {check_steps} "
+          f"teacher-forced steps: fp32 copy {d32:.6f} (limit 0.15), bf16 "
+          f"{d16:.6f} (printed, not limited)", flush=True)
+    check(d32 < 0.15, f"path H: fp32 decode/decode_train mismatch {d32}")
+    del p32
+    free_card()
+
+
+def path_t1(cfg, device, *, batch=2, seq=1024, steps=6, seed=0):
+    """Training at full width and depth (qwen2.5-3b): bf16 params, fp32
+    moments, remat "full", build_train_step over data_batch; `steps`
+    steps timed with CUDA events; then one step with microbatches=2
+    against microbatches=1 on the first batch from the same params (the
+    bounds of tests/test_training.py)."""
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.training.trainer import build_train_step, data_batch
+    model = build_model(cfg)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=steps, seed=seed)
+    step_fn, opt = build_train_step(model, tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+    n = sum(t.numel() for t in _leaves(params))
+    probe = {"emb": params["emb"][:64].clone(),
+             "w_up": params["blocks"]["mlp"]["w_up"][-1, :64].clone()}
+    state = opt.init(params)
+    print(f"[path T1] {cfg.name} ({cfg.family}): {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n / 1e9:.4f}B params "
+          f"bf16, moments {cfg.moment_dtype}, remat {cfg.remat}; batch "
+          f"{batch} x seq {seq}, lr {tcfg.learning_rate} (warmup "
+          f"{tcfg.warmup_steps}); memory after init "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB", flush=True)
+    step_ms = []
+    for step in range(steps):
+        b = data_batch(cfg, tcfg, step, batch, seq, device=device)
+        (params, state, m), ms = cuda_timed(
+            lambda: step_fn(params, state, b))
+        step_ms.append(ms)
+        loss, gn, lr = (float(m["loss"]), float(m["grad_norm"]),
+                        float(m["lr"]))
+        print(f"[path T1] step {step}: loss {loss:.6f}, grad norm {gn:.6f}, "
+              f"lr {lr:.3e}, {ms:.3f} ms (CUDA events)", flush=True)
+        check(math.isfinite(loss) and math.isfinite(gn),
+              f"path T1: step {step} loss {loss}, grad norm {gn}")
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(step_ms[1:])
+    tokens = batch * seq
+    flops = 6 * n * tokens / (steady / 1e3)
+    print(f"[path T1] steps 1-{steps - 1} median {steady:.3f} ms a step "
+          f"(step 0 {step_ms[0]:.3f}); {tokens / (steady / 1e3):.1f} "
+          f"tokens/s; model FLOP/s (6 N tokens / step time) "
+          f"{flops / 1e12:.3f} T = {flops / BF16_FLOPS:.4f} of "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16; peak memory "
+          f"{peak / 1e9:.3f} GB (max_memory_allocated)", flush=True)
+    changed = {k: _max_diff(v, params["emb"][:64] if k == "emb" else
+                            params["blocks"]["mlp"]["w_up"][-1, :64])
+               for k, v in probe.items()}
+    check(all(d > 0 for d in changed.values()),
+          f"path T1: params did not change ({changed})")
+    del state, probe
+    free_card()
+
+    # grad accumulation: one step each from the same params and batch
+    torch.cuda.reset_peak_memory_stats()
+    b0 = data_batch(cfg, tcfg, 0, batch, seq, device=device)
+    out = {}
+    for mb in (1, 2):
+        fn, o = build_train_step(model, dataclasses.replace(
+            tcfg, microbatches=mb))
+        p = _tree(torch.clone, params) if mb == 1 else params
+        st = o.init(p)
+        (p, st, m), ms = cuda_timed(lambda: fn(p, st, b0))
+        del st
+        free_card()
+        out[mb] = (p, float(m["loss"]), ms)
+    dloss = abs(out[1][1] - out[2][1])
+    dparam = max(_max_diff(a, c) for a, c in zip(_leaves(out[1][0]),
+                                                 _leaves(out[2][0])))
+    print(f"[path T1] microbatches 2 vs 1 on the first batch: loss "
+          f"{out[2][1]:.6f} vs {out[1][1]:.6f} (|diff| {dloss:.6f}, limit "
+          f"5e-3), params max |diff| {dparam:.6f} (limit 2e-2); "
+          f"{out[2][2]:.3f} vs {out[1][2]:.3f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    check(dloss < 5e-3, f"path T1: grad accumulation loss gap {dloss}")
+    check(dparam < 2e-2, f"path T1: grad accumulation params gap {dparam}")
+    del out, params, p
+    free_card()
+
+
+def path_t2(cfg, device, *, batch=4, n_frames=1500, steps=12, every=4,
+            fault_step=7):
+    """Checkpoints and fault restart at full width (whisper-tiny):
+    train_loop uninterrupted, and again with a failure injected at
+    `fault_step` and a restart from the last commit; the final params
+    and moments bit-equal. Runs under torch.use_deterministic_algorithms
+    (the embedding gather's and the loss gather's backward accumulate
+    with atomics otherwise)."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.training.trainer import FaultInjector, train_loop
+    from repro_torch.tree import leaves
+    model = build_model(cfg)
+    tcfg = TrainConfig(total_steps=steps, warmup_steps=2,
+                       checkpoint_every=every)
+    kw = dict(batch=batch, seq=n_frames, steps=steps, log_every=1,
+              device=device)
+    print(f"[path T2] {cfg.name}: train_loop, batch {batch} x {n_frames} "
+          f"frames (+ {cfg.dec_len + 1} decoder tokens), {steps} steps, "
+          f"checkpoint every {every}; a failure injected at step "
+          f"{fault_step}; deterministic algorithms on", flush=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            cm1 = CheckpointManager(os.path.join(d, "a"))
+            t0 = time.perf_counter()
+            r1 = train_loop(model, tcfg, ckpt_manager=cm1, **kw)
+            wall1 = time.perf_counter() - t0
+            cm2 = CheckpointManager(os.path.join(d, "b"))
+            fault = FaultInjector((fault_step,))
+            try:
+                train_loop(model, tcfg, ckpt_manager=cm2, fault=fault, **kw)
+            except RuntimeError as e:
+                print(f"[path T2] {e}; commits {cm2.all_steps()}",
+                      flush=True)
+            check(fault.fired == {fault_step},
+                  "path T2: the injected failure did not fire")
+            resumed = cm2.all_steps()[-1]
+            t0 = time.perf_counter()
+            r2 = train_loop(model, tcfg, ckpt_manager=cm2, fault=fault, **kw)
+            wall2 = time.perf_counter() - t0
+            check(r2["history"][0][0] == resumed,
+                  f"path T2: resumed at {r2['history'][0][0]}, not {resumed}")
+            a = leaves({"params": r1["params"], "opt": r1["opt"]})
+            b = leaves({"params": r2["params"], "opt": r2["opt"]})
+            same = len(a) == len(b) and all(torch.equal(x, y)
+                                            for x, y in zip(a, b))
+            nbytes = sum(x.numel() * x.element_size() for x in a)
+            state = {"params": r2["params"], "opt": r2["opt"]}
+            t0 = time.perf_counter()
+            cm2.save(state, steps + 1, block=True)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cm2.restore(steps + 1, like=state, device=device)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    losses = [f"{l:.4f}" for _, l in r1["history"]]
+    print(f"[path T2] uninterrupted: {steps} steps in {wall1:.3f} s, losses "
+          f"{', '.join(losses)}; restarted run: resumed from step "
+          f"{resumed}, {steps - resumed} steps in {wall2:.3f} s; final "
+          f"params and moments ({len(a)} leaves) bit-equal: {same}; one "
+          f"checkpoint ({nbytes / 1e6:.1f} MB) written in {write_s:.3f} s, "
+          f"restored onto the card in {restore_s:.3f} s (host clock)",
+          flush=True)
+    check(same, "path T2: the restarted run's state differs")
+    del r1, r2, state, a, b
+    free_card()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
     else:
         yield tree
+
 
 
 # ----------------------------------------------------------------------------
@@ -1442,6 +1718,9 @@ def main():
         fail("src/repro_torch not found beside chip_smoke.py; run it from "
              "a checkout of the repository", 2)
     sys.path.insert(0, SRC)
+    # path T2 runs under torch.use_deterministic_algorithms, which needs a
+    # fixed cuBLAS workspace, set before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1554,6 +1833,10 @@ def main():
         # path G: the SSM and hybrid families on their own entry points
         for arch in ("mamba2-130m", "zamba2-2.7b"):
             path_g(get_config(arch), device)
+        # path H: Whisper; paths T1 and T2: training, checkpoints, restart
+        path_h(get_config("whisper-tiny"), device)
+        path_t1(get_config("qwen2.5-3b"), device)
+        path_t2(get_config("whisper-tiny"), device)
     except SmokeError as e:
         fail(str(e))
 

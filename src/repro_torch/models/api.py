@@ -1,14 +1,12 @@
-"""Unified model facade (PyTorch): the dense, MoE, SSM and hybrid
-families.
+"""Unified model facade (PyTorch): the dense, MoE, SSM, hybrid and
+enc-dec families.
 
   init(generator, device)              -- a param dict drawn from a seed
   loss(params, batch)                  -- mean next-token xent (+ MoE aux),
-                                          forward only
+                                          differentiable (train_step target)
   prefill(params, inputs)              -- inference-prefill target
   decode_step(params, cache, token, pos)
-  init_cache(batch, capacity, device)
-
-The enc-dec family (Whisper) is not ported yet.
+  init_cache(batch, capacity, device)  -- enc-dec: capacity = encoder length
 """
 from __future__ import annotations
 
@@ -20,7 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
-from repro_torch.models import hybrid, mamba_lm, transformer
+from repro_torch.models import encdec, hybrid, mamba_lm, transformer
 
 
 @dataclasses.dataclass
@@ -47,6 +45,8 @@ class Model:
         return self._mod.loss_fn(self.cfg, params, batch)
 
     def prefill(self, params, inputs):
+        if self.cfg.family == "encdec":
+            return self._mod.prefill(self.cfg, params, inputs["frames"])
         return self._mod.prefill(self.cfg, params, inputs["tokens"])
 
     def decode_step(self, params, cache, token, pos):
@@ -62,12 +62,9 @@ _FAMILY_MODULES = {
     "moe": transformer,
     "hybrid": hybrid,
     "ssm": mamba_lm,
+    "encdec": encdec,
 }
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in _FAMILY_MODULES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            "queue 1, item 5: Whisper)")
     return Model(cfg=cfg, _mod=_FAMILY_MODULES[cfg.family])

@@ -76,13 +76,19 @@ def forward(cfg, params, tokens, *, collect: bool = False):
     """-> (x_final, (per-layer ssm caches, per-group (k, v)) | None)."""
     x = params["emb"][tokens]
     positions = torch.arange(tokens.shape[1], device=x.device)
+    blocks = T.unstack(params["blocks"])
+    # the shared block is rematerialized too, as in the reference: its
+    # per-kv-chunk softmax residuals would otherwise dominate train memory
+    inner = T._remat(cfg, lambda bp, x: mamba_lm.ssm_layer(
+        cfg, bp, x, return_state=collect))
+    shared = T._remat(cfg, lambda x: _shared_attn(cfg, params["shared"], x,
+                                                  positions))
     ssm_caches, kvs = [], []
     for g in range(n_attn_apps(cfg)):
         for l in _group_layers(cfg, g):
-            x, c = mamba_lm.ssm_layer(cfg, T.layer_params(params["blocks"], l),
-                                      x, return_state=collect)
+            x, c = inner(blocks[l], x)
             ssm_caches.append(c)
-        x, kv = _shared_attn(cfg, params["shared"], x, positions)
+        x, kv = shared(x)
         kvs.append(kv)
     x = L.apply_norm(cfg, x, params["final_norm"])
     return x, (ssm_caches, kvs) if collect else None
@@ -127,8 +133,9 @@ def decode_step(cfg, params, cache, token, pos: int):
     tk = cache["attn_tail_k"].clone()
     tv = cache["attn_tail_v"].clone()
     ssm_caches = []
+    blocks = T.unstack(params["blocks"])
     for g in range(n_attn_apps(cfg)):
-        x, new = mamba_lm.decode_layers(cfg, params, x, conv, state,
+        x, new = mamba_lm.decode_layers(cfg, blocks, x, conv, state,
                                         _group_layers(cfg, g))
         ssm_caches += new
         x, _ = _shared_attn(cfg, params["shared"], x, positions,

@@ -58,7 +58,9 @@ def norm_defs(cfg, d: int, prefix_shape=()) -> dict:
     return defs
 
 
-def attention_defs(cfg, *, stacked: int = 0) -> dict:
+def attention_defs(cfg, *, stacked: int = 0, cross: bool = False) -> dict:
+    """q/k/v/o projections (+ biases). `cross` (an enc-dec decoder's
+    cross-attention) declares the same leaves, as in the reference."""
     d, hq, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                       cfg.resolved_head_dim)
     pre = (stacked,) if stacked else ()
@@ -114,6 +116,25 @@ def apply_norm(cfg, x, p):
     if cfg.norm == "rmsnorm":
         return rms_norm(x, p["scale"])
     return layer_norm(x, p["scale"], p["bias"])
+
+
+class _BF16GradBarrier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16)
+
+
+def bf16_grad_barrier(x):
+    """Identity forward; casts the cotangent to bf16.
+
+    Autograd casts the bf16 gradient back to x's dtype, so for an fp32 x
+    the gradient stays fp32 but keeps its bf16 rounding; the reference's
+    custom VJP returns the bf16 value itself. The values are the same."""
+    return _BF16GradBarrier.apply(x)
 
 
 def act_fn(name: str):

@@ -1,9 +1,10 @@
 """Pure-SSM LM (mamba2-130m): Mamba2 blocks, no attention (PyTorch).
 
 Port of ``repro/models/mamba_lm.py``; an eager loop over layers takes
-the place of the reference's ``lax.scan``. ``decode_step`` returns new
-conv and state tensors and leaves the cache it is given untouched, as
-the reference does.
+the place of the reference's ``lax.scan``, each layer rematerialized
+under autograd per cfg.remat. ``decode_step`` returns new conv and
+state tensors and leaves the cache it is given untouched, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -44,10 +45,11 @@ def forward(cfg, params, tokens, *, collect_state: bool = False):
     """-> (x_final, {"conv": (L, b, cw-1, ch), "state": (L, b, h, p, n)}
     | None)."""
     x = params["emb"][tokens]
+    layer = T._remat(cfg, lambda bp, x: ssm_layer(cfg, bp, x,
+                                                  return_state=collect_state))
     caches = []
-    for l in range(cfg.num_layers):
-        x, c = ssm_layer(cfg, T.layer_params(params["blocks"], l), x,
-                         return_state=collect_state)
+    for bp in T.unstack(params["blocks"]):
+        x, c = layer(bp, x)
         caches.append(c)
     x = L.apply_norm(cfg, x, params["final_norm"])
     return x, stack_caches(caches) if collect_state else None
@@ -82,13 +84,13 @@ def init_cache(cfg, batch: int, capacity: int = 0, *, device,
     }
 
 
-def decode_layers(cfg, params, x, conv, state, layers):
+def decode_layers(cfg, blocks, x, conv, state, layers):
     """Decode the Mamba2 layers `layers` over x (b, 1, d) from the cache
-    stacks; returns x and each layer's new (conv, state), cast to the
-    stacks' dtypes."""
+    stacks; `blocks` are the per-layer params (``T.unstack``). Returns x
+    and each layer's new (conv, state), cast to the stacks' dtypes."""
     out = []
     for l in layers:
-        x, c = ssm_layer(cfg, T.layer_params(params["blocks"], l), x,
+        x, c = ssm_layer(cfg, blocks[l], x,
                          cache={"conv": conv[l], "state": state[l]})
         out.append({"conv": c["conv"].to(conv.dtype),
                     "state": c["state"].to(state.dtype)})
@@ -100,7 +102,8 @@ def decode_step(cfg, params, cache, token, pos):
     position). Returns (logits, new cache)."""
     del pos
     x = params["emb"][token[:, None]]
-    x, caches = decode_layers(cfg, params, x, cache["conv"], cache["state"],
+    x, caches = decode_layers(cfg, T.unstack(params["blocks"]), x,
+                              cache["conv"], cache["state"],
                               range(cfg.num_layers))
     x = L.apply_norm(cfg, x, params["final_norm"])
     logits = T.unembed(cfg, params, x)[:, 0, :]

@@ -1,12 +1,18 @@
 """Decoder-only transformer LM, dense and MoE families (PyTorch).
 
 Port of ``repro/models/transformer.py``. The reference scans stacked
-layer params with ``lax.scan``; here an eager loop indexes layer l of
-each stacked tensor. The loss is forward only (no gradients).
+layer params with ``lax.scan``; here an eager loop takes the layers of
+each stacked tensor (``unstack``), and ``_remat`` checkpoints each layer
+under autograd as the reference's ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamDef
@@ -36,10 +42,41 @@ def param_defs(cfg) -> dict:
     return defs
 
 
-def layer_params(blocks: dict, l: int) -> dict:
-    """Layer l of a stacked param subtree."""
-    return {k: layer_params(v, l) if isinstance(v, dict) else v[l]
+def unstack(blocks: dict) -> list:
+    """Every layer of a stacked param subtree, one ``torch.unbind`` a
+    leaf: its backward stacks the layers' grads in one allocation, where
+    taking layer l with ``v[l]`` builds a zero tensor the size of the
+    whole leaf in each layer's backward."""
+    cols = {k: unstack(v) if isinstance(v, dict) else torch.unbind(v, 0)
             for k, v in blocks.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[l] for k, c in cols.items()} for l in range(n)]
+
+
+# "dots": keep the outputs of matmuls without batch dims (the reference's
+# dots_with_no_batch_dims_saveable), recompute everything else
+_save_dots = functools.partial(
+    create_selective_checkpoint_contexts,
+    [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+
+
+def _remat(cfg, fn):
+    """fn rematerialized per cfg.remat under autograd: "full" recomputes
+    it in the backward pass, "dots" keeps its matmul outputs and
+    recomputes the rest, "none" keeps every activation. Without grad
+    (prefill, decode) it is fn."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}")
+    context_fn = _save_dots if cfg.remat == "dots" else noop_context_fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return run
 
 
 def decode_attention(cfg, bp_attn, q, k, v, ctx_k, ctx_v, tail_k, tail_v,
@@ -85,7 +122,7 @@ def _block(cfg, bp, x, positions, *, causal=True, kv_cache=None, pos=None):
         y, aux = L.moe_block(cfg, bp["moe"], h)
     else:
         y, aux = L.mlp_block(cfg, bp["mlp"], h), 0.0
-    return x + y, new_kv, aux
+    return L.bf16_grad_barrier(x + y), new_kv, aux
 
 
 def forward(cfg, params, tokens, *, collect_kv: bool = False):
@@ -98,9 +135,9 @@ def forward(cfg, params, tokens, *, collect_kv: bool = False):
     positions = torch.arange(tokens.shape[1], device=x.device)
     ks, vs = [], []
     aux = 0.0
-    for l in range(cfg.num_layers):
-        x, (k, v), a = _block(cfg, layer_params(params["blocks"], l), x,
-                              positions)
+    block = _remat(cfg, functools.partial(_block, cfg))
+    for bp in unstack(params["blocks"]):
+        x, (k, v), a = block(bp, x, positions)
         aux = aux + a
         if collect_kv:
             ks.append(k)
@@ -115,16 +152,25 @@ def unembed(cfg, params, x):
     return torch.einsum("bsd,dv->bsv", x, w)
 
 
+def _xent_sum(cfg, params, x, labels, mask):
+    logits = unembed(cfg, params, x).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum((lse - lab) * mask)
+
+
 def softmax_xent(cfg, params, x, labels, mask, *, chunk: int = 0):
     """Cross-entropy summed over the masked positions, unembedding
-    `chunk` positions at a time (O(chunk * V) memory)."""
+    `chunk` positions at a time (O(chunk * V) memory). Under autograd
+    each chunk is checkpointed, as in the reference: its fp32 logits are
+    recomputed in the backward pass, not kept."""
     chunk = chunk or cfg.loss_chunk
+    part = (functools.partial(checkpoint, _xent_sum, use_reentrant=False)
+            if torch.is_grad_enabled() else _xent_sum)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, x.shape[1], chunk):
-        logits = unembed(cfg, params, x[:, i:i + chunk]).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        lab = torch.gather(logits, -1, labels[:, i:i + chunk, None])[..., 0]
-        tot = tot + torch.sum((lse - lab) * mask[:, i:i + chunk])
+        sl = slice(i, i + chunk)
+        tot = tot + part(cfg, params, x[:, sl], labels[:, sl], mask[:, sl])
     return tot
 
 
@@ -173,9 +219,8 @@ def decode_step(cfg, params, cache, token, pos: int):
     Updates cache's tail buffers in place and returns (logits, cache)."""
     x = params["emb"][token[:, None]]                          # (b, 1, d)
     positions = torch.full((1,), pos, device=x.device)
-    for l in range(cfg.num_layers):
-        x, _, _ = _block(cfg, layer_params(params["blocks"], l), x,
-                         positions,
+    for l, bp in enumerate(unstack(params["blocks"])):
+        x, _, _ = _block(cfg, bp, x, positions,
                          kv_cache=(cache["k"][l], cache["v"][l],
                                    cache["tail_k"][l], cache["tail_v"][l]),
                          pos=pos)

@@ -30,7 +30,7 @@ from repro_torch.kernels.block_sparse_attn import kernel as TK  # noqa: E402
 from repro_torch.kernels.block_sparse_attn import ops as TO  # noqa: E402
 from repro_torch.kernels.block_sparse_attn import ref as TR  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
-from repro_torch.models.transformer import layer_params  # noqa: E402
+from repro_torch.models.transformer import unstack  # noqa: E402
 
 # jitted once per shape: op-by-op dispatch of the reference's oracle and
 # mask would compile every op anew for each case's shapes
@@ -195,7 +195,7 @@ def test_slice_qkv_through_sparse_prefill():
     jh = JL.apply_norm(jcfg, jparams["emb"][jnp.asarray(tokens)],
                        jbp["attn_norm"])
     jq, jk, jv = JL.attention_qkv(jcfg, jbp["attn"], jh, jnp.asarray(pos))
-    tbp = layer_params(tparams["blocks"], 0)
+    tbp = unstack(tparams["blocks"])[0]
     th = TL.apply_norm(tcfg, tparams["emb"][torch.from_numpy(tokens)],
                        tbp["attn_norm"])
     tq, tk, tv = TL.attention_qkv(tcfg, tbp["attn"], th,

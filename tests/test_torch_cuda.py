@@ -489,3 +489,95 @@ def test_serve_fleet_on_a_card_server_plans_on_card(cuda, monkeypatch):
     rep = srv.serve_fleet(jobs, run_queue=RunQueueModel(2, "wfq"))
     assert len(rep.records) == len(jobs)
     assert TB._PRED_CACHE[key].device.type == "cuda"
+
+
+# -------------------------------------------------- training and Whisper
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One build_train_step step of the qwen2.5-3b smoke config on the
+    card against the CPU, fp32 with TF32 off, from the same params and
+    batch. Grads differ by fp32 summation order, plus the odd element
+    whose cotangent rounds to the other bf16 neighbour at a block's
+    gradient barrier: grads within 1e-3 of each leaf's largest, the loss
+    within 1e-5. At the first Adam step every element moves by about
+    +-lr, so an element whose tiny grad flips sign lands 2 * lr away:
+    params within 2 * lr + 1e-6."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.training.trainer import (build_train_step, data_batch,
+                                              value_and_grad)
+    from repro_torch.tree import leaves, tree_map
+    model = build_model(get_smoke("qwen2.5-3b"))
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4)
+    params = tree_map(lambda t: t.float(), model.init(0, device="cpu"))
+    batch = data_batch(model.cfg, tcfg, 0, 4, 32, device="cpu")
+    gpu = lambda tree: tree_map(lambda t: t.to(cuda), tree)
+    _, cg = value_and_grad(model.loss, params, batch)
+    _, gg = value_and_grad(model.loss, gpu(params), gpu(batch))
+    for a, b in zip(leaves(gg), leaves(cg)):
+        bound = 1e-3 * max(float(b.abs().max()), 1e-3)
+        assert float((a.cpu() - b).abs().max()) <= bound
+    step, opt = build_train_step(model, tcfg)
+    cp, _, cm = step(tree_map(torch.clone, params), opt.init(params), batch)
+    gparams = gpu(params)
+    gp, gst, gm = step(gparams, opt.init(gparams), gpu(batch))
+    assert gst.count.device.type == cuda.type
+    assert abs(float(gm["loss"]) - float(cm["loss"])) < 1e-5
+    for a, b in zip(leaves(gp), leaves(cp)):
+        assert float((a.cpu() - b).abs().max()) <= 2 * 1e-3 + 1e-6
+
+
+def test_whisper_decode_on_card_matches_cpu(cuda):
+    """The whisper smoke model's prefill and 8 decode steps on the card
+    against the CPU, fp32 with TF32 off: logits within 1e-5 (fp32
+    summation order; logits of magnitude ~0.1)."""
+    from repro_torch.tree import tree_map
+    model = build_model(get_smoke("whisper-tiny"))
+    cfg = model.cfg
+    params = tree_map(lambda t: t.float() + 0.01 * torch.randn(
+        t.shape, generator=torch.Generator().manual_seed(t.numel())),
+        model.init(0, device="cpu"))
+    gparams = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.normal(size=(2, 40, cfg.d_model))
+                              .astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 8)))
+    caches = []
+    for p, dev in ((params, "cpu"), (gparams, cuda)):
+        pf = model.prefill(p, {"frames": frames.to(dev)})
+        cache = dict(model.init_cache(2, 40, device=dev), **pf)
+        cache = dict(cache, self_k=cache["self_k"].float(),
+                     self_v=cache["self_v"].float())
+        out = []
+        for i in range(8):
+            lg, cache = model.decode_step(p, cache, tokens[:, i].to(dev), i)
+            out.append(lg.cpu())
+        caches.append(out)
+    for a, b in zip(*caches):
+        assert torch.allclose(b, a, atol=1e-5, rtol=0)
+
+
+def test_checkpoint_from_card_restores_on_cpu(cuda, tmp_path):
+    """A train state saved from card tensors (bf16 params, fp32 moments,
+    int32 count) restores on the CPU bit for bit, and back onto the
+    card."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import TrainConfig
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.tree import leaves, tree_map
+    model = build_model(get_smoke("whisper-tiny"))
+    params = model.init(0, device=cuda)
+    opt = AdamW(TrainConfig()).init(params)
+    opt = opt._replace(m=tree_map(lambda t: torch.randn_like(t), opt.m),
+                       count=opt.count + 3)
+    state = {"params": params, "opt": opt}
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(state, 1)
+    cm.wait()
+    like = tree_map(lambda t: t.cpu(), state)
+    out = cm.restore(1, like=like, device="cpu")
+    back = cm.restore(1, like=state, device=cuda)
+    for a, b, c in zip(leaves(out), leaves(state), leaves(back)):
+        assert a.device.type == "cpu" and c.device.type == cuda.type
+        assert a.dtype == b.dtype and torch.equal(a, b.cpu())
+        assert torch.equal(c, b)

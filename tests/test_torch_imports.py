@@ -37,7 +37,12 @@ def test_port_imports_with_jax_and_reference_blocked():
     mods = _port_modules()
     assert {"repro_torch.kernels.kv_dequant.kernel",
             "repro_torch.models.ssm", "repro_torch.models.mamba_lm",
-            "repro_torch.models.hybrid"} <= set(mods)
+            "repro_torch.models.hybrid", "repro_torch.models.encdec",
+            "repro_torch.training.optimizer",
+            "repro_torch.training.trainer",
+            "repro_torch.training.compression",
+            "repro_torch.checkpoint.manager",
+            "repro_torch.launch.train"} <= set(mods)
     code = f"""
 import sys
 BLOCKED = {BLOCKED!r}

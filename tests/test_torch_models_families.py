@@ -343,12 +343,10 @@ def test_conv_tail_left_padded_for_short_prefill():
 
 
 def test_every_decoder_family_builds():
-    """build_model covers dense, moe, ssm and hybrid; only the enc-dec
-    family (Whisper) is still refused."""
+    """build_model covers every family: dense, moe, ssm, hybrid and
+    enc-dec (Whisper)."""
     fams = {}
-    for arch in ["sparkv-qwen3-4b", *ARCHS]:
+    for arch in ["sparkv-qwen3-4b", *ARCHS, "whisper-tiny"]:
         cfg = get_smoke(arch)
         fams[cfg.family] = build_model(cfg)
-    assert sorted(fams) == ["dense", "hybrid", "moe", "ssm"]
-    with pytest.raises(NotImplementedError, match="Whisper"):
-        build_model(get_smoke("whisper-tiny"))
+    assert sorted(fams) == ["dense", "encdec", "hybrid", "moe", "ssm"]
