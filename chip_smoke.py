@@ -74,7 +74,16 @@ Phases, in order; any failure exits non-zero:
      peak memory, tokens/s and model FLOP/s; loss and grad norm finite,
      params changed; then microbatches=2 against 1 on the first batch
      (loss within 5e-3, params within 2e-2, tests/test_training.py);
- 13. path T2: whisper-tiny's train_loop at 4 x 1500 frames, 12 steps,
+ 13. path S: the same training through the sharded step: a one-rank
+     NCCL process group (a local store, no gloo), make_local_mesh((1, 1))
+     and make_rules, qwen2.5-3b at full width and depth through
+     jit_train_step (DTensor params and moments) for T1's first 3 steps
+     from T1's seed and batches; losses and grad norms within 1e-6 of
+     T1's (printed, with the param probes' difference), ms a step and
+     peak memory beside T1's; then compressed_psum over one layer's grads
+     on NCCL (the mean equals the grads to int8 rounding, the residual
+     carries); the group is destroyed before T2;
+ 14. path T2: whisper-tiny's train_loop at 4 x 1500 frames, 12 steps,
      a checkpoint every 4, uninterrupted and with a failure injected at
      step 7 and a restart from the last commit, under deterministic
      algorithms: the final params and moments bit-equal; the checkpoint
@@ -1351,6 +1360,22 @@ def cuda_timed(fn):
     return out, s.elapsed_time(e)
 
 
+def count_ops(fn):
+    """(fn(), the aten ops it dispatched at the top level: a DTensor op
+    counts once, not the local ops it runs)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
 def _tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree(fn, v) for k, v in tree.items()}
@@ -1536,12 +1561,22 @@ def path_h(cfg, device, *, batch=4, n_frames=1500, new=32, check_steps=16,
     free_card()
 
 
-def path_t1(cfg, device, *, batch=2, seq=1024, steps=6, seed=0):
+def _t1_probes(params):
+    """Slices of two leaves, kept to compare paths T1 and S."""
+    emb, w_up = params["emb"], params["blocks"]["mlp"]["w_up"]
+    if hasattr(emb, "to_local"):            # a DTensor (path S)
+        emb, w_up = emb.to_local(), w_up.to_local()
+    return {"emb": emb[:64].clone(), "w_up": w_up[-1, :64].clone()}
+
+
+def path_t1(cfg, device, *, batch=2, seq=1024, steps=6, seed=0, keep=3):
     """Training at full width and depth (qwen2.5-3b): bf16 params, fp32
     moments, remat "full", build_train_step over data_batch; `steps`
     steps timed with CUDA events; then one step with microbatches=2
     against microbatches=1 on the first batch from the same params (the
-    bounds of tests/test_training.py)."""
+    bounds of tests/test_training.py). Returns what path S is held to:
+    the first `keep` steps' losses and grad norms, the param probes after
+    them, the steady ms a step and the peak memory."""
     import torch
     from repro_torch.configs import TrainConfig
     from repro_torch.models import build_model
@@ -1564,7 +1599,7 @@ def path_t1(cfg, device, *, batch=2, seq=1024, steps=6, seed=0):
           f"{batch} x seq {seq}, lr {tcfg.learning_rate} (warmup "
           f"{tcfg.warmup_steps}); memory after init "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB", flush=True)
-    step_ms = []
+    step_ms, hist = [], []
     for step in range(steps):
         b = data_batch(cfg, tcfg, step, batch, seq, device=device)
         (params, state, m), ms = cuda_timed(
@@ -1572,6 +1607,9 @@ def path_t1(cfg, device, *, batch=2, seq=1024, steps=6, seed=0):
         step_ms.append(ms)
         loss, gn, lr = (float(m["loss"]), float(m["grad_norm"]),
                         float(m["lr"]))
+        hist.append((loss, gn))
+        if step == keep - 1:
+            kept = _t1_probes(params)
         print(f"[path T1] step {step}: loss {loss:.6f}, grad norm {gn:.6f}, "
               f"lr {lr:.3e}, {ms:.3f} ms (CUDA events)", flush=True)
         check(math.isfinite(loss) and math.isfinite(gn),
@@ -1619,6 +1657,130 @@ def path_t1(cfg, device, *, batch=2, seq=1024, steps=6, seed=0):
     check(dparam < 2e-2, f"path T1: grad accumulation params gap {dparam}")
     del out, params, p
     free_card()
+    return {"hist": hist[:keep], "probes": kept, "ms": steady,
+            "peak": peak, "tcfg": tcfg}
+
+
+def path_s(cfg, device, t1, *, batch=2, seq=1024, seed=0):
+    """The sharded train step on the card: a one-rank NCCL process group
+    (a local store), a (1, 1) ("data", "model") mesh, make_rules, and
+    qwen2.5-3b at full width and depth through jit_train_step from T1's
+    seed, TrainConfig and data_batch, for as many steps as T1 kept. Its
+    losses, grad norms and param probes against T1's (a one-device mesh
+    runs the same kernels: limit 1e-6); ms a step (CUDA events) and peak
+    memory beside T1's. Then compressed_psum over one layer's grads on
+    NCCL at world size 1: the mean equals the grads to int8 rounding and
+    the residual carries. The group is destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import make_rules, mesh_shape
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.training.compression import (compressed_psum,
+                                                  init_error_state)
+    from repro_torch.training.trainer import (partitioned,
+                                              build_train_step, data_batch,
+                                              jit_train_step, shard_tree,
+                                              value_and_grad)
+    tcfg, steps = t1["tcfg"], len(t1["hist"])
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        check(dist.get_backend() == "nccl",
+              f"path S: backend {dist.get_backend()}, not nccl")
+        mesh = make_local_mesh((1, 1), device="cuda")
+        rules = make_rules(cfg, mesh)
+        model = build_model(cfg)
+        step_fn, opt = jit_train_step(
+            model, tcfg, rules,
+            model.input_pspecs(ShapeConfig("s", "train", seq, batch), rules))
+        torch.cuda.reset_peak_memory_stats()
+        params = shard_tree(
+            model.init(torch.Generator(device=device).manual_seed(seed),
+                       device=device), model.param_shardings(rules))
+        state = opt.init(params)
+        print(f"[path S] {cfg.name}: jit_train_step on a one-rank "
+              f"{dist.get_backend()} group, mesh {mesh_shape(mesh)}, "
+              f"{type(params['emb']).__name__} params; {steps} steps of "
+              f"T1's batches ({batch} x {seq} tokens)", flush=True)
+        step_ms, dl, dg = [], 0.0, 0.0
+        for step in range(steps):
+            b = data_batch(cfg, tcfg, step, batch, seq, device=device)
+            (params, state, m), ms = cuda_timed(
+                lambda: step_fn(params, state, b))
+            step_ms.append(ms)
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            tl, tg = t1["hist"][step]
+            dl, dg = max(dl, abs(loss - tl)), max(dg, abs(gn - tg))
+            print(f"[path S] step {step}: loss {loss:.6f} (T1 {tl:.6f}), "
+                  f"grad norm {gn:.6f} (T1 {tg:.6f}), {ms:.3f} ms "
+                  "(CUDA events)", flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        probes = _t1_probes(params)
+        dp = max(_max_diff(probes[k], t1["probes"][k]) for k in probes)
+        steady = statistics.median(step_ms[1:])
+        print(f"[path S] against T1: losses max |diff| {dl:.3e}, grad norms "
+              f"max |diff| {dg:.3e} (limit 1e-6 each), param probes max "
+              f"|diff| {dp:.3e}; steps 1-{steps - 1} median {steady:.3f} ms "
+              f"a step (step 0 {step_ms[0]:.3f}) vs T1's {t1['ms']:.3f} ms "
+              f"({steady / t1['ms']:.3f}x); peak memory {peak / 1e9:.3f} GB "
+              f"vs T1's {t1['peak'] / 1e9:.3f} GB", flush=True)
+        check(dl <= 1e-6 and dg <= 1e-6,
+              f"path S: losses {dl}, grad norms {dg} off T1's")
+
+        # where the extra host time goes: the ops one step dispatches,
+        # through DTensor and, on the same local tensors, plain
+        b = data_batch(cfg, tcfg, steps, batch, seq, device=device)
+        _, n_dt = count_ops(lambda: step_fn(params, state, b))
+        local = _tree(lambda t: t.to_local(), params)
+        plain_fn, plain_opt = build_train_step(model, tcfg)
+        lstate = type(state)(_tree(lambda t: t.to_local(), state.m),
+                             _tree(lambda t: t.to_local(), state.v),
+                             state.count)
+        _, n_plain = count_ops(lambda: plain_fn(local, lstate, b))
+        del local, lstate
+        extra = (steady - t1["ms"]) / n_plain * 1e3
+        print(f"[path S] ops a step: {n_dt} through DTensor, {n_plain} "
+              f"plain on the same local tensors; (S - T1) ms a step / plain "
+              f"ops = {extra:.1f} us of DTensor host work an op", flush=True)
+
+        # int8 error-feedback all-reduce over one layer's grads, on NCCL
+        b = data_batch(cfg, tcfg, steps, batch, seq, device=device)
+        with partitioned(rules):
+            _, grads = value_and_grad(model.loss, params, b)
+        g = {k: v.to_local()[0].float() for k, v in
+             grads["blocks"]["mlp"].items()}
+        del grads
+        err = init_error_state(g)
+        worst, carried, sent = 0.0, 0.0, {k: 0.0 for k in g}
+        for _ in range(2):
+            gf = {k: g[k] + err[k] for k in g}
+            avg, new = compressed_psum(g, err)
+            for k in g:
+                scale = (gf[k].abs().max() + 1e-12) / 127.0
+                worst = max(worst, float((avg[k] - gf[k]).abs().max()
+                                         / scale))
+                sent[k] = sent[k] + avg[k]
+            err = new
+        for k in g:     # what was sent is the grads less the residual
+            carried = max(carried, float((sent[k] - (2 * g[k] - err[k]))
+                                         .abs().max()))
+        nz = sum(float(e.abs().sum()) for e in err.values())
+        shapes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in g.items())
+        print(f"[path S] compressed_psum (nccl, world 1) over layer 0's MLP "
+              f"grads ({shapes}): "
+              f"mean vs grads max {worst:.3f} quantization steps (limit "
+              f"0.5), two steps' sum vs 2 g - residual max |diff| "
+              f"{carried:.3e}, residual |sum| {nz:.3e}", flush=True)
+        check(worst <= 0.5 + 1e-3, f"path S: int8 mean off by {worst} steps")
+        check(carried <= 1e-6 and nz > 0,
+              f"path S: the residual did not carry ({carried}, {nz})")
+    finally:
+        params = state = g = err = avg = new = None
+        free_card()
+        dist.destroy_process_group()
 
 
 def path_t2(cfg, device, *, batch=4, n_frames=1500, steps=12, every=4,
@@ -1835,7 +1997,12 @@ def main():
             path_g(get_config(arch), device)
         # path H: Whisper; paths T1 and T2: training, checkpoints, restart
         path_h(get_config("whisper-tiny"), device)
-        path_t1(get_config("qwen2.5-3b"), device)
+        t1 = path_t1(get_config("qwen2.5-3b"), device)
+        # path S: the same training through the sharded step on a
+        # one-rank NCCL mesh
+        path_s(get_config("qwen2.5-3b"), device, t1)
+        del t1
+        free_card()
         path_t2(get_config("whisper-tiny"), device)
     except SmokeError as e:
         fail(str(e))

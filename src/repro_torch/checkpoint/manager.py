@@ -11,8 +11,14 @@ checkpoint written by either package restores in the other:
   - saves copy every leaf to the host, then write on a background thread
     (training continues, and may update the params in place); `wait()`
     joins;
-  - retention: keep the last `keep` commits.
-Re-sharding on restore (``shardings``) waits for the mesh port.
+  - retention: keep the last `keep` commits;
+  - a state of DTensors (a sharded train step's) is saved gathered, the
+    full arrays, as the reference saves unsharded: every rank of the
+    mesh calls `save` (the gather is a collective), rank 0 writes, and
+    `wait()` ends with a barrier, so every rank sees the commit. Restore
+    targets any mesh: `shardings` (a tree of ``Sharding``s, as
+    ``Model.param_shardings`` gives) lays every leaf out as a DTensor on
+    the caller's mesh (elastic restore).
 """
 from __future__ import annotations
 
@@ -25,14 +31,18 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve
+from repro_torch.distributed.spmd import is_dtensor
 from repro_torch.tree import flatten, unflatten
 
 def _to_host(x: torch.Tensor) -> tuple[np.ndarray, str]:
     """(a host copy of a leaf as it is stored, its logical dtype). The
     copy is never a view of a tensor the caller may go on changing; bf16
-    is stored as its uint16 bit view."""
+    is stored as its uint16 bit view. A DTensor is gathered first."""
+    if is_dtensor(x):
+        x = x.full_tensor()
     t = x.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -46,6 +56,7 @@ class CheckpointManager:
         self.keep = keep
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
+        self._collective = False     # the last save was of DTensors
         os.makedirs(directory, exist_ok=True)
 
     # ---------- save ----------
@@ -53,6 +64,9 @@ class CheckpointManager:
         leaves, treedef = flatten(state)
         host_leaves = [_to_host(x) for x in leaves]
         self.wait()
+        self._collective = any(is_dtensor(x) for x in leaves)
+        if self._collective and dist.get_rank() != 0:
+            return                   # rank 0 writes the gathered state
         if self.async_save and not block:
             self._thread = threading.Thread(
                 target=self._write, args=(host_leaves, treedef, step),
@@ -95,6 +109,9 @@ class CheckpointManager:
         if self._thread is not None and self._thread.is_alive():
             self._thread.join()
         self._thread = None
+        if self._collective:         # every rank sees rank 0's commit
+            dist.barrier()
+            self._collective = False
 
     # ---------- restore ----------
     def all_steps(self) -> list[int]:
@@ -110,11 +127,10 @@ class CheckpointManager:
                 device=None, shardings: Optional[dict] = None):
         """Returns the state tree on `device` (default: the card). `like`
         (a tree of tensors) provides the structure and each leaf's
-        dtype."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "re-sharding on restore waits for the mesh port "
-                "(ROADMAP.md, queue 1, item 7)")
+        dtype. `shardings` (a tree of ``Sharding``s of the same
+        structure) makes every leaf a DTensor laid out on its mesh (on
+        the mesh's device; `device` is then unused): each rank keeps its
+        own blocks of the full array it read."""
         path = os.path.join(self.dir, f"step-{step}")
         with open(os.path.join(path, "index.json")) as f:
             index = json.load(f)
@@ -125,6 +141,16 @@ class CheckpointManager:
         if len(like_leaves) != len(leaves):
             raise ValueError(f"checkpoint step {step} has {len(leaves)} "
                              f"leaves, `like` {len(like_leaves)}")
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+            shs = flatten(shardings)[0]
+            if len(shs) != len(leaves):
+                raise ValueError(f"{len(shs)} shardings for {len(leaves)} "
+                                 "leaves")
+            return unflatten(treedef, [
+                distribute_tensor(x.to(sh.mesh.device_type, dtype=l.dtype),
+                                  sh.mesh, sh.placements, src_data_rank=None)
+                for x, l, sh in zip(leaves, like_leaves, shs)])
         dev = resolve(device)
         return unflatten(treedef, [x.to(dev, dtype=l.dtype)
                                    for x, l in zip(leaves, like_leaves)])

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import ParamDef
@@ -28,8 +30,8 @@ SELF_KV_CHUNK = 512
 def param_defs(cfg) -> dict:
     ne, nd = cfg.num_layers, cfg.dec_layers
     return {
-        "emb": ParamDef((cfg.padded_vocab, cfg.d_model)),
-        "pos_emb": ParamDef((cfg.dec_len, cfg.d_model)),
+        "emb": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "embed")),
+        "pos_emb": ParamDef((cfg.dec_len, cfg.d_model), (None, "embed")),
         "enc_norm": L.norm_defs(cfg, cfg.d_model),
         "dec_norm": L.norm_defs(cfg, cfg.d_model),
         "enc": {
@@ -53,14 +55,16 @@ def _enc_block(cfg, bp, x):
     h = L.apply_norm(cfg, x, bp["attn_norm"])
     q, k, v = L.attention_qkv(cfg, bp["attn"], h, None, use_rope=False)
     o = L.flash_attention(q, k, v, causal=False, kv_chunk=cfg.attn_chunk)
-    x = x + L.attention_out(bp["attn"], o)
+    x = constrain(x + L.attention_out(bp["attn"], o),
+                  "batch", "block_seq", None)
     h = L.apply_norm(cfg, x, bp["mlp_norm"])
-    return x + L.mlp_block(cfg, bp["mlp"], h)
+    return constrain(x + L.mlp_block(cfg, bp["mlp"], h),
+                     "batch", "block_seq", None)
 
 
 def encode(cfg, params, frames):
     """frames: (b, s, d) -> encoder output (b, s, d)."""
-    x = frames
+    x = constrain(frames, "batch", "block_seq", None)
     block = T._remat(cfg, lambda bp, x: _enc_block(cfg, bp, x))
     for bp in T.unstack(params["enc"]):
         x = block(bp, x)
@@ -74,8 +78,8 @@ def _cross_kv(cfg, params, enc_out):
     ks, vs = [], []
     for bp in T.unstack(params["dec"]):
         p = bp["cross_attn"]
-        k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+        k = spmd.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+        v = spmd.einsum("bsd,dhk->bshk", enc_out, p["wv"])
         if cfg.qkv_bias:
             k = k + p["bk"]
             v = v + p["bv"]
@@ -105,7 +109,7 @@ def _dec_block(cfg, bp, x, cross_kv, *, self_cache=None, pos=None):
 
     # cross-attention to the encoder output
     h = L.apply_norm(cfg, x, bp["cross_norm"])
-    q = torch.einsum("bsd,dhk->bshk", h, bp["cross_attn"]["wq"])
+    q = spmd.einsum("bsd,dhk->bshk", h, bp["cross_attn"]["wq"])
     if cfg.qkv_bias:
         q = q + bp["cross_attn"]["bq"]
     ek, ev = cross_kv
@@ -119,7 +123,10 @@ def _dec_block(cfg, bp, x, cross_kv, *, self_cache=None, pos=None):
 def decode_train(cfg, params, enc_out, dec_tokens):
     """Teacher-forced decoder. dec_tokens: (b, t) -> (b, t, d), post-norm."""
     t = dec_tokens.shape[1]
-    x = params["emb"][dec_tokens]
+    # not a reference site: a vocab-sharded gather is a masked partial
+    # sum, which the layer norm's mean cannot take (GSPMD reduces it
+    # implicitly)
+    x = constrain(params["emb"][dec_tokens], "batch", "block_seq", None)
     x = x + params["pos_emb"][None, :t, :].to(x.dtype)
     ck, cv = _cross_kv(cfg, params, enc_out)
     block = T._remat(cfg, lambda bp, x, ek, ev: _dec_block(
@@ -158,6 +165,12 @@ def init_cache(cfg, batch: int, enc_len: int, *, device,
         "self_k": z((nd, batch, cfg.dec_len, hkv, hd)),
         "self_v": z((nd, batch, cfg.dec_len, hkv, hd)),
     }
+
+
+def cache_axes(cfg):
+    kv = ("layers", "batch", "kv_seq", "act_kv", None)
+    sf = ("layers", "batch", None, "act_kv", None)
+    return {"cross_k": kv, "cross_v": kv, "self_k": sf, "self_v": sf}
 
 
 def decode_step(cfg, params, cache, token, pos: int):

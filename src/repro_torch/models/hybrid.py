@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import mamba_lm
 from repro_torch.models import ssm
@@ -31,7 +32,7 @@ def param_defs(cfg) -> dict:
         raise ValueError(f"{n} layers are not whole groups of "
                          f"{cfg.attn_every}")
     return {
-        "emb": ParamDef((cfg.padded_vocab, cfg.d_model)),
+        "emb": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "embed")),
         "final_norm": L.norm_defs(cfg, cfg.d_model),
         "blocks": {
             "norm": L.norm_defs(cfg, cfg.d_model, prefix_shape=(n,)),
@@ -67,14 +68,16 @@ def _shared_attn(cfg, sp, x, positions, *, kv_cache=None, pos=None):
             cfg, sp["attn"], q, k, v, ctx_k, ctx_v, tail_k, tail_v,
             pos - ctx_k.shape[1])
         new_kv = (tail_k, tail_v)
-    x = x + L.attention_out(sp["attn"], o)
+    x = constrain(x + L.attention_out(sp["attn"], o),
+                  "batch", "block_seq", None)
     h = L.apply_norm(cfg, x, sp["mlp_norm"])
-    return x + L.mlp_block(cfg, sp["mlp"], h), new_kv
+    return constrain(x + L.mlp_block(cfg, sp["mlp"], h),
+                     "batch", "block_seq", None), new_kv
 
 
 def forward(cfg, params, tokens, *, collect: bool = False):
     """-> (x_final, (per-layer ssm caches, per-group (k, v)) | None)."""
-    x = params["emb"][tokens]
+    x = constrain(params["emb"][tokens], "batch", "block_seq", None)
     positions = torch.arange(tokens.shape[1], device=x.device)
     blocks = T.unstack(params["blocks"])
     # the shared block is rematerialized too, as in the reference: its
@@ -122,6 +125,16 @@ def init_cache(cfg, batch: int, capacity: int, *, device,
                                        dtype=dtype),
             "attn_k": z(kv), "attn_v": z(kv),
             "attn_tail_k": z(tail), "attn_tail_v": z(tail)}
+
+
+def cache_axes(cfg):
+    kv = ("layers", "batch", "kv_seq", "act_kv", None)
+    tl = ("layers", "batch", None, "act_kv", None)
+    return {
+        "ssm": mamba_lm.cache_axes(cfg),
+        "attn_k": kv, "attn_v": kv,
+        "attn_tail_k": tl, "attn_tail_v": tl,
+    }
 
 
 def decode_step(cfg, params, cache, token, pos: int):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models import transformer as T
@@ -19,7 +20,7 @@ from repro_torch.models.layers import ParamDef
 def param_defs(cfg) -> dict:
     n = cfg.num_layers
     return {
-        "emb": ParamDef((cfg.padded_vocab, cfg.d_model)),
+        "emb": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "embed")),
         "final_norm": L.norm_defs(cfg, cfg.d_model),
         "blocks": {
             "norm": L.norm_defs(cfg, cfg.d_model, prefix_shape=(n,)),
@@ -33,7 +34,7 @@ def ssm_layer(cfg, bp, x, *, cache=None, return_state=False):
     h = L.apply_norm(cfg, x, bp["norm"])
     y, new_cache = ssm.ssm_block(cfg, bp["ssm"], h, cache=cache,
                                  return_state=return_state)
-    return x + y, new_cache
+    return constrain(x + y, "batch", "block_seq", None), new_cache
 
 
 def stack_caches(caches: list) -> dict:
@@ -44,7 +45,7 @@ def stack_caches(caches: list) -> dict:
 def forward(cfg, params, tokens, *, collect_state: bool = False):
     """-> (x_final, {"conv": (L, b, cw-1, ch), "state": (L, b, h, p, n)}
     | None)."""
-    x = params["emb"][tokens]
+    x = constrain(params["emb"][tokens], "batch", "block_seq", None)
     layer = T._remat(cfg, lambda bp, x: ssm_layer(cfg, bp, x,
                                                   return_state=collect_state))
     caches = []
@@ -81,6 +82,13 @@ def init_cache(cfg, batch: int, capacity: int = 0, *, device,
                             dtype=dtype, device=device),
         "state": torch.zeros((n_l, batch, h, p, n), dtype=torch.float32,
                              device=device),
+    }
+
+
+def cache_axes(cfg):
+    return {
+        "conv": ("layers", "batch", None, None),
+        "state": ("layers", "batch", "ssm_heads", "ssm_pdim", "state"),
     }
 
 

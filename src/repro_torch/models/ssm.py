@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import ParamDef
 
 
@@ -34,21 +36,30 @@ def ssm_defs(cfg, *, stacked: int = 0) -> dict:
     d_inner, h, p, n = ssm_dims(cfg)
     cw = cfg.ssm.conv_width
     pre = (stacked,) if stacked else ()
+    pax = ("layers",) if stacked else ()
     return {
-        "wx": ParamDef(pre + (d, h, p)),
-        "wz": ParamDef(pre + (d, h, p)),
-        "wB": ParamDef(pre + (d, n)),
-        "wC": ParamDef(pre + (d, n)),
-        "wdt": ParamDef(pre + (d, h)),
-        "dt_bias": ParamDef(pre + (h,), init="zeros"),
-        "A_log": ParamDef(pre + (h,), init="zeros"),
-        "D": ParamDef(pre + (h,), init="ones"),
+        "wx": ParamDef(pre + (d, h, p),
+                       pax + ("embed_fsdp", "ssm_heads", "ssm_pdim")),
+        "wz": ParamDef(pre + (d, h, p),
+                       pax + ("embed_fsdp", "ssm_heads", "ssm_pdim")),
+        "wB": ParamDef(pre + (d, n), pax + ("embed_fsdp", "state")),
+        "wC": ParamDef(pre + (d, n), pax + ("embed_fsdp", "state")),
+        "wdt": ParamDef(pre + (d, h), pax + ("embed_fsdp", "ssm_heads")),
+        "dt_bias": ParamDef(pre + (h,), pax + ("ssm_heads",), init="zeros"),
+        "A_log": ParamDef(pre + (h,), pax + ("ssm_heads",), init="zeros"),
+        "D": ParamDef(pre + (h,), pax + ("ssm_heads",), init="ones"),
         # depthwise causal conv over x channels (h*p) and B, C (n each)
-        "conv_x": ParamDef(pre + (cw, h, p), scale=0.5),
-        "conv_B": ParamDef(pre + (cw, n), scale=0.5),
-        "conv_C": ParamDef(pre + (cw, n), scale=0.5),
-        "norm": ParamDef(pre + (h, p), init="zeros"),
+        "conv_x": ParamDef(pre + (cw, h, p),
+                           pax + ("conv", "ssm_heads", "ssm_pdim"),
+                           scale=0.5),
+        "conv_B": ParamDef(pre + (cw, n), pax + ("conv", "state"),
+                           scale=0.5),
+        "conv_C": ParamDef(pre + (cw, n), pax + ("conv", "state"),
+                           scale=0.5),
+        "norm": ParamDef(pre + (h, p), pax + ("ssm_heads", "ssm_pdim"),
+                         init="zeros"),
         "wo": ParamDef(pre + (h, p, d),
+                       pax + ("ssm_heads", "ssm_pdim", "embed_fsdp"),
                        scale=0.02 / np.sqrt(2 * max(cfg.num_layers, 1))),
     }
 
@@ -148,25 +159,47 @@ def ssm_block(cfg, p, x, *, cache=None, return_state=False):
     "state": (b, h, p, n)}, read and not written. Returns (y, new cache or
     None); the prefill cache's conv holds the last cw-1 pre-conv inputs
     [x, B, C], left-padded when s < cw-1."""
-    s_cfg = cfg.ssm
-    d_inner, h, pd, n = ssm_dims(cfg)
-    b, s, _ = x.shape
-
-    xi = torch.einsum("bsd,dhp->bshp", x, p["wx"])
-    z = torch.einsum("bsd,dhp->bshp", x, p["wz"])
-    Bv = torch.einsum("bsd,dn->bsn", x, p["wB"])
-    Cv = torch.einsum("bsd,dn->bsn", x, p["wC"])
-    dt = torch.einsum("bsd,dh->bsh", x, p["wdt"]) + p["dt_bias"]
+    xi = spmd.einsum("bsd,dhp->bshp", x, p["wx"])
+    z = spmd.einsum("bsd,dhp->bshp", x, p["wz"])
+    Bv = spmd.einsum("bsd,dn->bsn", x, p["wB"])
+    Cv = spmd.einsum("bsd,dn->bsn", x, p["wC"])
+    dt = spmd.einsum("bsd,dh->bsh", x, p["wdt"]) + p["dt_bias"]
     dt = F.softplus(dt.float())
     A = -torch.exp(p["A_log"].float())
 
+    xi = constrain(xi, "batch", "seq", None, "ssm_pdim")
+    mix = {k: p[k] for k in ("conv_x", "conv_B", "conv_C", "D")}
+    if spmd.is_dtensor(xi):
+        if cache is not None or return_state:
+            raise NotImplementedError(
+                "the Mamba2 block over DTensors runs the train/loss pass "
+                "only (no prefill state, no decode)")
+        g = _mix_sharded(cfg, mix, xi, z, Bv, Cv, dt, A)
+        new_cache = None
+    else:
+        g, new_cache = _mix(cfg, mix, xi, z, Bv, Cv, dt, A, cache,
+                            return_state)
+    var = torch.mean(g * g, dim=-1, keepdim=True)
+    g = g * torch.rsqrt(var + 1e-6)
+    g = (g * (1.0 + p["norm"].float())).to(x.dtype)
+    out = spmd.einsum("bshp,hpd->bsd", g, p["wo"])
+    return out, new_cache
+
+
+def _mix(cfg, mix, xi, z, Bv, Cv, dt, A, cache, return_state):
+    """The block between its projections and its gated norm: causal conv
+    (or the decode window), SiLU, the SSD scan (or one recurrence step),
+    the D skip and the gate. Returns (g in fp32, new cache or None)."""
+    s_cfg = cfg.ssm
+    b, s, h, pd = xi.shape           # local blocks under _mix_sharded
+    n = Bv.shape[-1]
     xflat = xi.reshape(b, s, h * pd)
-    convw = p["conv_x"].reshape(s_cfg.conv_width, h * pd)
+    convw = mix["conv_x"].reshape(s_cfg.conv_width, h * pd)
     new_cache = None
     if cache is None:
         xconv = _causal_conv(xflat, convw)
-        Bconv = _causal_conv(Bv, p["conv_B"])
-        Cconv = _causal_conv(Cv, p["conv_C"])
+        Bconv = _causal_conv(Bv, mix["conv_B"])
+        Cconv = _causal_conv(Cv, mix["conv_C"])
         if return_state:
             cw = s_cfg.conv_width
             tail = torch.cat([xflat, Bv, Cv], dim=-1)[:, -(cw - 1):, :]
@@ -177,17 +210,17 @@ def ssm_block(cfg, p, x, *, cache=None, return_state=False):
         # decode: shift the conv window by the new token
         cat = torch.cat([xflat, Bv, Cv], dim=-1)               # (b,1,ch)
         win = torch.cat([cache["conv"], cat], dim=1)           # (b,cw,ch)
-        allw = torch.cat([convw, p["conv_B"], p["conv_C"]], dim=-1)
+        allw = torch.cat([convw, mix["conv_B"], mix["conv_C"]], dim=-1)
         conv_out = torch.sum(win.float() * allw.float()[None], dim=1,
-                             keepdim=True).to(x.dtype)         # (b,1,ch)
+                             keepdim=True).to(xi.dtype)         # (b,1,ch)
         xconv = conv_out[..., :h * pd]
         Bconv = conv_out[..., h * pd:h * pd + n]
         Cconv = conv_out[..., h * pd + n:]
         new_cache = {"conv": win[:, 1:, :]}
 
-    xact = F.silu(xconv.float()).to(x.dtype).reshape(b, s, h, pd)
-    Bact = F.silu(Bconv.float()).to(x.dtype)
-    Cact = F.silu(Cconv.float()).to(x.dtype)
+    xact = F.silu(xconv.float()).to(xi.dtype).reshape(b, s, h, pd)
+    Bact = F.silu(Bconv.float()).to(xi.dtype)
+    Cact = F.silu(Cconv.float()).to(xi.dtype)
 
     if cache is None:
         out = ssd_chunked(xact, dt, A, Bact, Cact,
@@ -200,20 +233,42 @@ def ssm_block(cfg, p, x, *, cache=None, return_state=False):
         # single-step recurrence: a compute-dtype dBx into the fp32 state
         dA = torch.exp(dt[:, 0, :] * A)                        # (b,h)
         dBx = torch.einsum("bn,bhp->bhpn", Bact[:, 0],
-                           xact[:, 0] * dt[:, 0, :, None].to(x.dtype))
+                           xact[:, 0] * dt[:, 0, :, None].to(xi.dtype))
         state = cache["state"] * dA[:, :, None, None] + dBx
-        y = torch.einsum("bhpn,bn->bhp", state.to(x.dtype), Cact[:, 0])
+        y = torch.einsum("bhpn,bn->bhp", state.to(xi.dtype), Cact[:, 0])
         y = y[:, None]                                         # (b,1,h,p)
         new_cache["state"] = state
 
-    y = y + xact * p["D"].to(x.dtype)[None, None, :, None]
+    y = y + xact * mix["D"].to(xi.dtype)[None, None, :, None]
     # gated RMSNorm (mamba2 style): norm(y * silu(z))
     g = y.float() * F.silu(z.float())
-    var = torch.mean(g * g, dim=-1, keepdim=True)
-    g = g * torch.rsqrt(var + 1e-6)
-    g = (g * (1.0 + p["norm"].float())).to(x.dtype)
-    out = torch.einsum("bshp,hpd->bsd", g, p["wo"])
-    return out, new_cache
+    return g, new_cache
+
+
+def _mix_sharded(cfg, mix, xi, z, Bv, Cv, dt, A):
+    """_mix (train/loss pass) on each rank's local blocks: the batch and
+    the head_dim channels (ssm_pdim) stay where xi has them, with the
+    conv weights of those channels; a seq-sharded xi is gathered (the
+    scan runs along the sequence). B, C, dt, A and D are replicated over
+    the channel split. The gated norm that follows reduces over
+    head_dim, so it stays outside, on DTensors."""
+    from torch.distributed.tensor import Replicate, Shard
+    x_pl, tok_pl, cx_pl = [], [], []
+    for p in xi.placements:
+        dim = p.dim if type(p) is Shard else None
+        x_pl.append(p if dim in (0, 3) else Replicate())
+        tok_pl.append(p if dim == 0 else Replicate())
+        cx_pl.append(Shard(2) if dim == 3 else Replicate())
+    rep = [Replicate()] * len(x_pl)
+
+    def fn(xi, z, Bv, Cv, dt, A, cx, cB, cC, D):
+        return _mix(cfg, {"conv_x": cx, "conv_B": cB, "conv_C": cC, "D": D},
+                    xi, z, Bv, Cv, dt, A, None, False)[0]
+    return spmd.local(
+        fn, (xi, z, Bv, Cv, dt, A, mix["conv_x"], mix["conv_B"],
+             mix["conv_C"], mix["D"]),
+        (x_pl, x_pl, tok_pl, tok_pl, tok_pl, rep, cx_pl, rep, rep, rep),
+        [x_pl])
 
 
 def conv_cache_channels(cfg) -> int:

@@ -14,6 +14,8 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamDef
 
@@ -25,7 +27,7 @@ DECODE_TAIL = 128
 def param_defs(cfg) -> dict:
     n = cfg.num_layers
     defs = {
-        "emb": ParamDef((cfg.padded_vocab, cfg.d_model)),
+        "emb": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "embed")),
         "final_norm": L.norm_defs(cfg, cfg.d_model),
         "blocks": {
             "attn_norm": L.norm_defs(cfg, cfg.d_model, prefix_shape=(n,)),
@@ -38,7 +40,8 @@ def param_defs(cfg) -> dict:
     else:
         defs["blocks"]["mlp"] = L.mlp_defs(cfg, stacked=n)
     if not cfg.tie_embeddings:
-        defs["unemb"] = ParamDef((cfg.d_model, cfg.padded_vocab))
+        defs["unemb"] = ParamDef((cfg.d_model, cfg.padded_vocab),
+                                 ("embed_fsdp", "vocab"))
     return defs
 
 
@@ -116,13 +119,17 @@ def _block(cfg, bp, x, positions, *, causal=True, kv_cache=None, pos=None):
             cfg, bp["attn"], q, k, v, ctx_k, ctx_v, tail_k, tail_v,
             tail_pos)
         new_kv = (tail_k, tail_v)
-    x = x + L.attention_out(bp["attn"], o)
+    y = constrain(L.attention_out(bp["attn"], o),
+                  "batch", "block_seq", None)
+    x = constrain(x + y, "batch", "block_seq", None)
     h = L.apply_norm(cfg, x, bp["mlp_norm"])
     if cfg.moe is not None:
         y, aux = L.moe_block(cfg, bp["moe"], h)
     else:
         y, aux = L.mlp_block(cfg, bp["mlp"], h), 0.0
-    return L.bf16_grad_barrier(x + y), new_kv, aux
+    y = constrain(y, "batch", "block_seq", None)
+    x = constrain(x + y, "batch", "block_seq", None)
+    return L.bf16_grad_barrier(x), new_kv, aux
 
 
 def forward(cfg, params, tokens, *, collect_kv: bool = False):
@@ -131,7 +138,7 @@ def forward(cfg, params, tokens, *, collect_kv: bool = False):
     Returns (x_final, (k_stack, v_stack) | None, aux_sum); the stacks are
     (L, b, s, hkv, hd). x_final is post-final-norm; aux_sum is the MoE
     router loss summed over layers (0.0 for the dense family)."""
-    x = params["emb"][tokens]
+    x = constrain(params["emb"][tokens], "batch", "block_seq", None)
     positions = torch.arange(tokens.shape[1], device=x.device)
     ks, vs = [], []
     aux = 0.0
@@ -149,14 +156,18 @@ def forward(cfg, params, tokens, *, collect_kv: bool = False):
 
 def unembed(cfg, params, x):
     w = params["emb"].T if cfg.tie_embeddings else params["unemb"]
-    return torch.einsum("bsd,dv->bsv", x, w)
+    return constrain(spmd.einsum("bsd,dv->bsv", x, w),
+                     "batch", "seq", "act_vocab")
 
 
 def _xent_sum(cfg, params, x, labels, mask):
     logits = unembed(cfg, params, x).float()
     lse = torch.logsumexp(logits, dim=-1)
-    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.sum((lse - lab) * mask)
+    # the label logits keep their gathered (.., 1) shape into the
+    # subtraction: on a vocab-sharded DTensor the gather is a masked
+    # partial sum, reduced there with a mask of that shape
+    lab = torch.gather(logits, -1, labels[..., None].long())
+    return torch.sum((lse[..., None] - lab)[..., 0] * mask)
 
 
 def softmax_xent(cfg, params, x, labels, mask, *, chunk: int = 0):
@@ -211,6 +222,12 @@ def init_cache(cfg, batch: int, capacity: int, *, device,
     z = lambda s: torch.zeros(s, dtype=dtype, device=device)
     return {"k": z(shape), "v": z(shape), "tail_k": z(tail),
             "tail_v": z(tail)}
+
+
+def cache_axes(cfg):
+    ax = ("layers", "batch", "kv_seq", "act_kv", None)
+    tl = ("layers", "batch", None, "act_kv", None)
+    return {"k": ax, "v": ax, "tail_k": tl, "tail_v": tl}
 
 
 def decode_step(cfg, params, cache, token, pos: int):

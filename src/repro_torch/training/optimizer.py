@@ -6,6 +6,14 @@ into the tensors it is given (the reference's jitted train step donates
 them), one slice of a stacked leaf at a time, so that the fp32
 temporaries stay small beside a multi-GB leaf. Moment dtype is per model
 (``moment_dtype``: fp32 by default, bf16 for qwen3-moe-235b-a22b).
+
+On a mesh the params, grads and moments are DTensors of one layout per
+leaf (``param_pspecs``, ``state_pspecs``). The update is elementwise, so
+it runs on each rank's local blocks (their placements must match); the
+global norm sums each rank's local squares, each leaf divided by the
+number of ranks that hold a copy of its block, in one all-reduce over
+the mesh. The step count and the metrics are plain tensors, the same on
+every rank: replicated scalars.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.spmd import is_dtensor
 from repro_torch.models.layers import _DTYPES
 from repro_torch.tree import leaves, tree_map
 
@@ -47,10 +56,46 @@ def _slices(x: torch.Tensor) -> list:
     return list(x.split(rows, 0))
 
 
+def _local(x) -> torch.Tensor:
+    """A DTensor's local block (an alias: writes reach the DTensor)."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _copies(x) -> int:
+    """How many ranks hold each block of x: the sizes of the mesh dims
+    it is replicated on (1 for a plain tensor)."""
+    if not is_dtensor(x):
+        return 1
+    n = 1
+    for size, pl in zip(x.device_mesh.shape, x.placements):
+        if pl.is_partial():
+            raise ValueError("global_norm of a Partial DTensor; bring it to "
+                             "its param's placements first")
+        if pl.is_replicate():
+            n *= size
+    return n
+
+
 def global_norm(tree) -> torch.Tensor:
-    sums = [sum(torch.sum(torch.square(s.float())) for s in _slices(x))
-            for x in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    """sqrt of the sum of squares of every leaf, in fp32; over a mesh,
+    one all-reduce of each rank's local sums."""
+    xs = leaves(tree)
+    sums = [sum(torch.sum(torch.square(s.float())) for s in
+                _slices(_local(x))) for x in xs]
+    meshes = {x.device_mesh for x in xs if is_dtensor(x)}
+    if not meshes:
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+    if len(meshes) > 1:
+        raise ValueError("global_norm over DTensors of several meshes")
+    import torch.distributed as dist
+    (mesh,) = meshes
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"a mesh of {mesh.size()} ranks in a world of "
+                         f"{dist.get_world_size()}: the norm sums over the "
+                         "world")
+    tot = torch.sum(torch.stack([t / _copies(x) for t, x in zip(sums, xs)]))
+    dist.all_reduce(tot)
+    return torch.sqrt(tot)
 
 
 def clip_by_global_norm(tree, max_norm: float):
@@ -59,7 +104,7 @@ def clip_by_global_norm(tree, max_norm: float):
     gn = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for x in leaves(tree):
-        for s in _slices(x):
+        for s in _slices(_local(x)):
             s.copy_(s.float() * scale)
     return tree, gn
 
@@ -72,14 +117,32 @@ class AdamW:
         self.moment_dtype = _DTYPES[moment_dtype]
 
     def init(self, params) -> AdamWState:
-        zeros = lambda p: torch.zeros(p.shape, dtype=self.moment_dtype,
-                                      device=p.device)
+        """Zero moments in the params' layout (DTensors of the same
+        placements on a mesh) and a zero step count."""
+        def zeros(p):
+            if is_dtensor(p):
+                return torch.zeros_like(p, dtype=self.moment_dtype)
+            return torch.zeros(p.shape, dtype=self.moment_dtype,
+                               device=p.device)
         some = leaves(params)
-        dev = some[0].device if some else None
+        dev = _local(some[0]).device if some else None
         return AdamWState(m=tree_map(zeros, params),
                           v=tree_map(zeros, params),
                           count=torch.zeros((), dtype=torch.int32,
                                             device=dev))
+
+    def abstract_state(self, abstract_params) -> AdamWState:
+        """The state's shapes and dtypes as meta tensors."""
+        zeros = lambda p: torch.empty(p.shape, dtype=self.moment_dtype,
+                                      device="meta")
+        return AdamWState(m=tree_map(zeros, abstract_params),
+                          v=tree_map(zeros, abstract_params),
+                          count=torch.empty((), dtype=torch.int32,
+                                            device="meta"))
+
+    def state_pspecs(self, param_pspecs):
+        from repro_torch.distributed.sharding import PartitionSpec as P
+        return AdamWState(m=param_pspecs, v=param_pspecs, count=P())
 
     def update(self, grads, state: AdamWState, params):
         """One step: clips `grads` and updates `params`, state.m and
@@ -87,7 +150,10 @@ class AdamW:
         "lr"})."""
         c = self.cfg
         grads, gnorm = clip_by_global_norm(grads, c.grad_clip)
-        count = state.count + 1
+        count = state.count
+        if is_dtensor(count):          # a restored replicated scalar
+            count = count.full_tensor()
+        count = count + 1
         b1, b2 = c.b1, c.b2
         bc1 = 1 - b1 ** count.float()
         bc2 = 1 - b2 ** count.float()
@@ -106,7 +172,13 @@ class AdamW:
 
         for p, g, m, v in zip(leaves(params), leaves(grads),
                               leaves(state.m), leaves(state.v)):
-            for sl in zip(*map(_slices, (p, g, m, v))):
+            if is_dtensor(p) and not (p.placements == g.placements
+                                       == m.placements == v.placements):
+                raise ValueError(
+                    f"param {p.placements}, grad {g.placements}, moments "
+                    f"{m.placements}, {v.placements}: the update runs on "
+                    "local blocks of one layout")
+            for sl in zip(*(_slices(_local(t)) for t in (p, g, m, v))):
                 upd(*sl)
         return params, AdamWState(state.m, state.v, count), {
             "grad_norm": gnorm, "lr": lr}

@@ -108,8 +108,9 @@ def test_port_checkpoint_restores_in_the_reference(tmp_path):
 
 
 def test_restore_onto_other_dtypes_and_checks(tmp_path):
-    """`like` sets each leaf's dtype; a tree of another size and
-    re-sharding are refused."""
+    """`like` sets each leaf's dtype; a tree of another size, and
+    shardings for another number of leaves, are refused (re-sharding
+    itself is held in tests/test_torch_distributed.py)."""
     cm = CheckpointManager(str(tmp_path))
     state = {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3),
              "n": torch.tensor(2, dtype=torch.int32)}
@@ -123,7 +124,7 @@ def test_restore_onto_other_dtypes_and_checks(tmp_path):
         cm.restore(1, like={"w": state["w"]}, device=CPU)
     with pytest.raises(ValueError):
         cm.restore(1, device=CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="shardings"):
         cm.restore(1, like=state, device=CPU, shardings={"w": None})
 
 

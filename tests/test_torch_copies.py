@@ -17,7 +17,7 @@ COPIES = sorted(
        "core/milp.py", "serving/simcore.py", "serving/resources.py",
        "serving/kvstore.py", "serving/decode.py", "serving/memory.py",
        "serving/scenarios.py", "serving/slo.py", "serving/cluster.py",
-       "serving/traffic.py"])
+       "serving/traffic.py", "distributed/analytic.py"])
 
 
 def test_copy_list_covers_every_config():

@@ -581,3 +581,56 @@ def test_checkpoint_from_card_restores_on_cpu(cuda, tmp_path):
         assert a.device.type == "cpu" and c.device.type == cuda.type
         assert a.dtype == b.dtype and torch.equal(a, b.cpu())
         assert torch.equal(c, b)
+
+
+def test_jit_train_step_on_one_rank_nccl_mesh(cuda):
+    """The qwen2.5-3b smoke config through jit_train_step on a (1, 1)
+    mesh of a one-rank NCCL group against build_train_step on the card,
+    2 steps from the same fp32 params and batches: a one-device mesh runs
+    the same kernels, so losses and grad norms within 1e-6 and params
+    within 1e-6 of each leaf's largest (expected bit-equal)."""
+    import torch.distributed as dist
+    from repro_torch.configs import TrainConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.training.trainer import (build_train_step, data_batch,
+                                              jit_train_step, shard_tree)
+    from repro_torch.tree import leaves, tree_map
+    if dist.is_initialized():
+        pytest.skip("a process group is already running in this process")
+    model = build_model(get_smoke("qwen2.5-3b"))
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4)
+    init = tree_map(lambda t: t.float(), model.init(0, device=cuda))
+    batches = [data_batch(model.cfg, tcfg, s, 4, 32, device=cuda)
+               for s in range(2)]
+    step, opt = build_train_step(model, tcfg)
+    p = tree_map(torch.clone, init)
+    st = opt.init(p)
+    want = []
+    for b in batches:
+        p, st, m = step(p, st, b)
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_local_mesh((1, 1), device="cuda")
+        rules = make_rules(model.cfg, mesh)
+        sstep, sopt = jit_train_step(model, tcfg, rules, model.input_pspecs(
+            ShapeConfig("t", "train", 32, 4), rules))
+        q = shard_tree(tree_map(torch.clone, init),
+                       model.param_shardings(rules))
+        sst = sopt.init(q)
+        for b, (loss, gn) in zip(batches, want):
+            q, sst, m = sstep(q, sst, b)
+            assert abs(float(m["loss"]) - loss) <= 1e-6
+            assert abs(float(m["grad_norm"]) - gn) <= 1e-6
+        assert type(q["emb"]).__name__ == "DTensor"
+        for a, b in zip(leaves(q), leaves(p)):
+            a = a.to_local()
+            assert a.device.type == "cuda"
+            bound = 1e-6 * max(float(b.abs().max()), 1e-3)
+            assert float((a - b).abs().max()) <= bound
+    finally:
+        dist.destroy_process_group()

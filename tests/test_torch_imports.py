@@ -42,7 +42,10 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.training.trainer",
             "repro_torch.training.compression",
             "repro_torch.checkpoint.manager",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.distributed", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.spmd",
+            "repro_torch.distributed.analytic"} <= set(mods)
     code = f"""
 import sys
 BLOCKED = {BLOCKED!r}
@@ -69,7 +72,8 @@ print("ok", len({mods!r}))
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"),
-                                       ROOT / "chip_smoke.py"]))
+                                       ROOT / "chip_smoke.py",
+                                       ROOT / "tests" / "torch_dist_worker.py"]))
 def test_no_jax_or_reference_imports(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -129,3 +133,18 @@ def test_chip_smoke_refuses_without_its_checkout(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_spawned_ranks_block_jax_first():
+    """The multi-rank tests' worker installs the same blocker before it
+    imports anything else, so its ranks run the port without JAX."""
+    src = (ROOT / "tests" / "torch_dist_worker.py").read_text()
+    head = src[:src.index("import dataclasses")]
+    assert 'BLOCKED = ("jax", "jaxlib", "repro")' in head
+    assert "sys.meta_path.insert(0, _Block())" in head
+    code = ("import sys; "
+            f"exec(open({str(ROOT / 'tests' / 'torch_dist_worker.py')!r})"
+            ".read().split('import dataclasses')[0]); import jax")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0 and "blocked: jax" in out.stderr
