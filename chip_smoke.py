@@ -87,7 +87,21 @@ Phases, in order; any failure exits non-zero:
      a checkpoint every 4, uninterrupted and with a failure injected at
      step 7 and a restart from the last commit, under deterministic
      algorithms: the final params and moments bit-equal; the checkpoint
-     write and restore seconds.
+     write and restore seconds;
+ 15. path P: prefill and decode over DTensors: a one-rank NCCL group, a
+     (1, 1) mesh and the dry run's rules (prefill, and weight-stationary
+     for decode); sparkv-qwen3-4b, then mamba2-130m, at full width and
+     depth, random bf16 weights from a seed: a 2048-token prefill and 8
+     decode steps over DTensors beside the plain port on the same
+     weights and tokens, every logits tensor and the prefill and final
+     caches within 1e-6; ms a prefill and a decode step (CUDA events)
+     and ops a call, through DTensor and plain; the group is destroyed;
+ 16. path R: the dry run in a subprocess: a fake 256-rank process group,
+     the 16x16 production mesh typed CUDA over fake tensors, and the
+     cells mamba2-130m x decode_32k and granite-moe-3b-a800m x
+     decode_32k; each record's status, seconds, peak bytes a rank,
+     flops, collectives by kind and roofline terms (the H100 model's
+     estimates); the subprocess's exit code decides.
 
 Path E's TTFT, SLO attainment and energy are the fleet simulator's
 virtual clock, labelled "(simulated)"; beside them it prints what the
@@ -1858,6 +1872,193 @@ def path_t2(cfg, device, *, batch=4, n_frames=1500, steps=12, every=4,
     free_card()
 
 
+# ----------------------------------------------------------------------------
+# paths P and R: prefill and decode over DTensors; the dry run
+# ----------------------------------------------------------------------------
+
+
+def _serve(model, params, tokens, steps, rules_pre, rules_dec):
+    """A prefill of `tokens` and len(steps) decode steps fed the tokens
+    `steps` (plain tensors, or DTensors under the rules: the prefill's
+    outputs laid out by prefill_out_axes, the decode cache by
+    cache_axes). Returns (logits list, prefill cache, final cache, prefill
+    ms, decode ms list, ops a prefill, ops a decode step)."""
+    import torch
+    from repro_torch.models.api import lay_out
+    from repro_torch.training.trainer import partitioned
+    n = tokens.shape[1]
+    pos0 = 0 if model.cfg.family == "encdec" else n
+
+    def tok(t):
+        return rules_dec.distribute(t, ("batch",)) if rules_dec else t
+
+    def prefill():
+        with torch.no_grad(), partitioned(rules_pre):
+            x = {"tokens": rules_pre.distribute(tokens, ("batch", None))
+                 if rules_pre else tokens}
+            out = model.prefill(params, x)
+            return lay_out(out, model.prefill_out_axes(), rules_pre) \
+                if rules_pre else out
+
+    def decode(cache, t, pos):
+        with torch.no_grad(), partitioned(rules_dec):
+            out = model.decode_step(params, cache, tok(t), pos)
+            return lay_out(out, (("batch", "act_vocab"),
+                                 model.cache_axes()), rules_dec) \
+                if rules_dec else out
+
+    prefill()                                           # warm-up
+    (logits, pre), pre_ms = cuda_timed(prefill)
+    _, pre_ops = count_ops(prefill)
+    with torch.no_grad(), partitioned(rules_dec):
+        cache = model.decode_cache(_tree(lambda t: t.clone(), pre),
+                                   rules_dec)
+        if rules_dec:
+            cache = lay_out(cache, model.cache_axes(), rules_dec)
+    out, step_ms = [logits], []
+    for i, t in enumerate(steps):
+        (lg, cache), ms = cuda_timed(lambda: decode(cache, t, pos0 + i))
+        out.append(lg)
+        step_ms.append(ms)
+    spare = _tree(lambda t: t.clone(), cache)
+    _, dec_ops = count_ops(lambda: decode(spare, steps[-1],
+                                          pos0 + len(steps)))
+    return out, pre, cache, pre_ms, step_ms, pre_ops, dec_ops
+
+
+def path_p(cfgs, device, *, n_tokens=2048, new=8, seed=0):
+    """Prefill and decode over DTensors on the card: a one-rank NCCL group
+    (a local store), a (1, 1) ("data", "model") mesh and the dry run's
+    rules (make_rules for prefill, weight-stationary for decode). Each
+    config at full width and depth, random bf16 weights from a seed: an
+    n_tokens prefill and `new` decode steps over DTensors beside the plain
+    port on the same weights and tokens (seeded decode tokens): every
+    logits tensor and the prefill and final caches
+    within 1e-6; ms (CUDA events) and ops a call, through DTensor and
+    plain. The group is destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.distributed.spmd import is_dtensor
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.training.trainer import shard_tree
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        check(dist.get_backend() == "nccl",
+              f"path P: backend {dist.get_backend()}, not nccl")
+        mesh = make_local_mesh((1, 1), device="cuda")
+        for cfg in cfgs:
+            model = build_model(cfg)
+            params = model.init(torch.Generator(device=device)
+                                .manual_seed(seed), device=device)
+            rng = np.random.default_rng(seed)
+            tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                  size=(1, n_tokens)),
+                                     device=device)
+            toks = [torch.as_tensor(t, device=device) for t in
+                    rng.integers(0, cfg.vocab_size, size=(new, 1))]
+            plain = _serve(model, params, tokens, toks, None, None)
+            rp = make_rules(cfg, mesh)
+            rd = make_rules(cfg, mesh, weight_stationary=True)
+            sharded = _serve(model, shard_tree(params,
+                                               model.param_shardings(rp)),
+                             tokens, toks, rp, rd)
+            check(all(is_dtensor(t) for t in _leaves(sharded[2])),
+                  f"path P {cfg.name}: the sharded cache is not DTensors")
+            full = lambda t: t.full_tensor() if is_dtensor(t) else t
+            d_log = max(_max_diff(full(a), b)
+                        for a, b in zip(sharded[0], plain[0]))
+            d_pre = max(_max_diff(full(a), b) for a, b in
+                        zip(_leaves(sharded[1]), _leaves(plain[1])))
+            d_fin = max(_max_diff(full(a), b) for a, b in
+                        zip(_leaves(sharded[2]), _leaves(plain[2])))
+            fin = all(bool(torch.isfinite(t.float()).all())
+                      for t in plain[0])
+            print(f"[path P] {cfg.name} ({cfg.family}), {cfg.num_layers} "
+                  f"layers, d_model {cfg.d_model}: prefill {n_tokens} "
+                  f"tokens {sharded[3]:.3f} ms over DTensors vs "
+                  f"{plain[3]:.3f} ms plain (CUDA events, second call); "
+                  f"decode step 0 {sharded[4][0]:.3f} vs {plain[4][0]:.3f} "
+                  f"ms, steps 1-{new - 1} median "
+                  f"{statistics.median(sharded[4][1:]):.3f} vs "
+                  f"{statistics.median(plain[4][1:]):.3f} ms; ops a "
+                  f"prefill {sharded[5]} DTensor vs {plain[5]} plain, a "
+                  f"decode step {sharded[6]} vs {plain[6]}", flush=True)
+            print(f"[path P] {cfg.name}: max |DTensor - plain| logits "
+                  f"{d_log:.3e} ({len(plain[0])} calls), prefill cache "
+                  f"{d_pre:.3e}, final cache {d_fin:.3e} (limit 1e-6 each)",
+                  flush=True)
+            check(fin, f"path P {cfg.name}: plain logits not finite")
+            check(max(d_log, d_pre, d_fin) <= 1e-6,
+                  f"path P {cfg.name}: DTensor run off the plain one "
+                  f"({d_log}, {d_pre}, {d_fin})")
+            del params, plain, sharded
+            free_card()
+    finally:
+        free_card()
+        dist.destroy_process_group()
+
+
+def path_r(cells=(("mamba2-130m", "decode_32k"),
+                  ("granite-moe-3b-a800m", "decode_32k")), *, timeout=600):
+    """The dry run on a CUDA-typed mesh: a subprocess starts a fake
+    256-rank process group and traces each (arch, shape) cell on the
+    16x16 production mesh of fake CUDA tensors (launch/dryrun.py); its
+    exit code decides. Prints each record's status, seconds, peak bytes
+    per rank, flops per rank, collectives by kind and roofline terms
+    (the H100 model's; estimates, not measurements)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, PYTHONPATH=SRC)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", ",".join(a for a, _ in cells),
+               "--shape", ",".join(sorted({s for _, s in cells})),
+               "--mesh", "single", "--device", "cuda", "--out", out]
+        t0 = time.perf_counter()
+        try:
+            res = subprocess.run(cmd, env=env, capture_output=True,
+                                 text=True, timeout=timeout)
+        except subprocess.TimeoutExpired:
+            raise SmokeError(f"path R: the dry run took over {timeout} s")
+        wall = time.perf_counter() - t0
+        recs = []
+        for arch, shape in cells:
+            path = os.path.join(out, "pod16x16", f"{arch}__{shape}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    recs.append(json.load(f))
+    print(f"[path R] dry run on a fake 256-rank group, CUDA-typed 16x16 "
+          f"mesh: exit {res.returncode}, {wall:.1f} s wall", flush=True)
+    for rec in recs:
+        if rec["status"] != "OK":
+            print(f"[path R] {rec['arch']} x {rec['shape']}: "
+                  f"{rec['status']} {rec.get('error', '')}\n"
+                  f"{rec.get('traceback', '')[-2500:]}", flush=True)
+            continue
+        m, rl = rec["memory"], rec["roofline"]
+        kinds = {k: v["count"] for k, v in
+                 rec["collectives"]["by_kind"].items()}
+        print(f"[path R] {rec['arch']} x {rec['shape']} ({rec['device']}):"
+              f" OK, trace {rec['trace_s']} s, {rec['local_ops']} local "
+              f"ops; peak {m['peak_est_bytes'] / 1e9:.3f} GB a rank of "
+              f"80 GB; flops/rank {rec['cost']['flops_per_dev']:.4e}, "
+              f"bytes/rank {rec['cost']['bytes_per_dev']:.4e}; collectives "
+              f"{kinds}, wire {rec['collectives']['wire_bytes']:.4e} B; "
+              f"roofline compute {rl['compute_s']:.3e} s, memory "
+              f"{rl['memory_s']:.3e} s, collective {rl['collective_s']:.3e}"
+              f" s, {rl['dominant']}-bound (estimates)", flush=True)
+    if res.returncode:
+        raise SmokeError(f"path R: dry run exit {res.returncode}: "
+                         f"{res.stderr[-3000:]}")
+    check(len(recs) == len(cells) and all(r["status"] == "OK" and
+                                          r["device"] == "cuda"
+                                          for r in recs),
+          f"path R: cells {[(r['arch'], r['status']) for r in recs]}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2004,6 +2205,14 @@ def main():
         del t1
         free_card()
         path_t2(get_config("whisper-tiny"), device)
+        # path P: prefill and decode over DTensors on a one-rank NCCL
+        # mesh; path R: the dry run on a CUDA-typed fake 256-rank mesh
+        for label, path in (("P", lambda: path_p(
+                [cfg, get_config("mamba2-130m")], device)), ("R", path_r)):
+            t0 = time.perf_counter()
+            path()
+            print(f"[path {label}] {time.perf_counter() - t0:.1f} s wall "
+                  "(host clock)", flush=True)
     except SmokeError as e:
         fail(str(e))
 

@@ -13,6 +13,10 @@ enc-dec families.
   input_specs(shape) / input_pspecs(shape, rules) / cache_axes()
                                        -- the inputs of a dry-run cell, as
                                           meta tensors and specs
+  prefill_out_axes() / decode_cache(pre, rules)
+                                       -- prefill's outputs' logical axes;
+                                          the decode cache of a prefill
+  lay_out(tree, axes, rules)           -- DTensors laid out by logical axes
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve
+from repro_torch.distributed.spmd import is_dtensor
 from repro_torch.models import layers as L
 from repro_torch.models import encdec, hybrid, mamba_lm, transformer
 
@@ -75,6 +80,59 @@ class Model:
     def cache_axes(self):
         return self._mod.cache_axes(self.cfg)
 
+    def prefill_out_axes(self):
+        """The logical axes of prefill's outputs (the reference's
+        launch/dryrun._prefill_out_axes): last-position logits, and the
+        cache leaves it returns."""
+        fam = self.cfg.family
+        ca = self.cache_axes()
+        logits = ("batch", "act_vocab")
+        if fam in ("dense", "moe"):
+            return (logits, {"k": ca["k"], "v": ca["v"]})
+        if fam == "ssm":
+            return (logits, ca)
+        if fam == "hybrid":
+            return (logits, {"ssm": ca["ssm"], "attn_k": ca["attn_k"],
+                             "attn_v": ca["attn_v"]})
+        if fam == "encdec":
+            return {"cross_k": ca["cross_k"], "cross_v": ca["cross_v"]}
+        raise ValueError(fam)
+
+    def decode_cache(self, pre: dict, rules=None) -> dict:
+        """The decode cache of a prefill's cache `pre`: its leaves, and
+        zeroed buffers for what decode writes (the attention tails; the
+        enc-dec self-attention caches) in the dtype of the context K
+        (DTensors laid out by cache_axes under `rules` when `pre` holds
+        DTensors). The SSM state and conv window are prefill's own."""
+        fam, cfg = self.cfg.family, self.cfg
+        if fam == "ssm":
+            return dict(pre)
+        ref = {"dense": "k", "moe": "k", "hybrid": "attn_k",
+               "encdec": "cross_k"}[fam]
+        lead, b = pre[ref].shape[:2]
+        hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        if fam == "encdec":
+            names, n = ("self_k", "self_v"), cfg.dec_len
+        else:
+            names = (("tail_k", "tail_v") if fam != "hybrid"
+                     else ("attn_tail_k", "attn_tail_v"))
+            n = transformer.DECODE_TAIL
+        shape = (lead, b, n, hkv, hd)
+        like = pre[ref]
+        axes = self.cache_axes()
+        out = dict(pre)
+        for name in names:
+            if rules is not None and is_dtensor(like):
+                from torch.distributed.tensor import zeros
+                out[name] = zeros(shape, dtype=like.dtype,
+                                  device_mesh=rules.mesh,
+                                  placements=rules.placements(axes[name],
+                                                              shape))
+            else:
+                out[name] = torch.zeros(shape, dtype=like.dtype,
+                                        device=like.device)
+        return out
+
     # ---- abstract inputs for a dry run (meta tensors) ----
     def input_specs(self, shape: ShapeConfig) -> dict:
         cfg = self.cfg
@@ -115,6 +173,24 @@ class Model:
 
     def train_batch_shape(self, shape: ShapeConfig) -> dict:
         return self.input_specs(shape)
+
+
+def lay_out(tree, axes, rules):
+    """Each leaf of `tree` (dicts and tuples of tensors) laid out by its
+    logical axes in the same-structured `axes` under `rules`: a DTensor
+    redistributed (only where its placements differ), a plain tensor
+    distributed (each rank keeps its own block, nothing is sent). The
+    counterpart of a jitted function's out_shardings."""
+    if isinstance(tree, dict):
+        return {k: lay_out(v, axes[k], rules) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(lay_out(v, a, rules) for v, a in zip(tree, axes))
+    want = rules.placements(axes, tree.shape)
+    if not is_dtensor(tree):
+        return rules.distribute(tree, axes)
+    if tuple(tree.placements) == tuple(want):
+        return tree
+    return tree.redistribute(tree.device_mesh, want)
 
 
 def _map_cache(fn, cache, axes):

@@ -100,8 +100,8 @@ def _dec_block(cfg, bp, x, cross_kv, *, self_cache=None, pos=None):
         new_kv = (k, v)
     else:
         ck, cv = self_cache
-        ck[:, pos] = k[:, 0]
-        cv[:, pos] = v[:, 0]
+        spmd.write(ck, pos, k[:, 0])
+        spmd.write(cv, pos, v[:, 0])
         o = L.flash_attention(q, ck, cv, causal=False, kv_len=pos + 1,
                               kv_chunk=SELF_KV_CHUNK)
         new_kv = (ck, cv)
@@ -181,7 +181,7 @@ def decode_step(cfg, params, cache, token, pos: int):
     if not 0 <= pos < cfg.dec_len:
         raise ValueError(f"decode position {pos} outside the "
                          f"{cfg.dec_len}-token decoder cache")
-    x = params["emb"][token[:, None]]
+    x = T.decode_embed(params, token)
     x = x + params["pos_emb"][None, pos:pos + 1].to(x.dtype)
     sk, sv = cache["self_k"].clone(), cache["self_v"].clone()
     for l, bp in enumerate(T.unstack(params["dec"])):

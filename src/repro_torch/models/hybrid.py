@@ -140,7 +140,7 @@ def cache_axes(cfg):
 def decode_step(cfg, params, cache, token, pos: int):
     """One decode step at global position `pos` (>= the context length).
     Returns (logits, new cache)."""
-    x = params["emb"][token[:, None]]
+    x = T.decode_embed(params, token)
     positions = torch.full((1,), pos, device=x.device)
     conv, state = cache["ssm"]["conv"], cache["ssm"]["state"]
     tk = cache["attn_tail_k"].clone()

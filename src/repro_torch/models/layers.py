@@ -302,15 +302,28 @@ def _flash_attention_sharded(q, k, v, *, q_offset, **kw):
     and heads stay where q has them (k and v follow q's head split); a
     seq-sharded q (sequence parallelism) attends over k and v gathered
     on that mesh dim, its causal positions offset by its block's start.
-    The score and PV matmuls never meet DTensor's sharding propagation."""
+    Where k is seq-sharded on a mesh dim on which q is not split by
+    batch or sequence (a decode token over a seq-sharded cache), the
+    cache stays where it is: q is gathered there (one token), each rank
+    attends over its own kv block and the partials are merged over that
+    mesh dim (``_merge_kv_split``). The score and PV matmuls never meet
+    DTensor's sharding propagation."""
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor._utils import (
-        compute_local_shape_and_global_offset)
     mesh = q.device_mesh
-    q_pl, kv_pl, st_pl = [], [], []
-    for p in q.placements:
+    q_pl, kv_pl, st_pl, split = [], [], [], []
+    for i, p in enumerate(q.placements):
         dim = p.dim if p.is_shard() and type(p) is Shard else None
-        if dim in (0, 2):                   # batch, heads
+        kp = k.placements[i]
+        kv_seq = kp.is_shard() and type(kp) is Shard and kp.dim == 1
+        if kv_seq and dim not in (0, 1):   # the cache's own seq split
+            if kw["causal"]:
+                raise NotImplementedError("causal attention over a "
+                                          "seq-sharded kv")
+            q_pl.append(Replicate())
+            kv_pl.append(kp)
+            st_pl.append(Replicate())
+            split.append(i)
+        elif dim in (0, 2):                 # batch, heads
             q_pl.append(p)
             kv_pl.append(p)
             st_pl.append(Shard({0: 0, 2: 1}[dim]))
@@ -322,13 +335,52 @@ def _flash_attention_sharded(q, k, v, *, q_offset, **kw):
             q_pl.append(Replicate())
             kv_pl.append(Replicate())
             st_pl.append(Replicate())
-    _, offset = compute_local_shape_and_global_offset(q.shape, mesh, q_pl)
+    offset = spmd.block_offset(q.shape, mesh, q_pl)
+    if not split:
+        def fn(ql, kl, vl):
+            return flash_attention(ql, kl, vl, q_offset=q_offset + offset[1],
+                                   **kw)
+        outs = [q_pl] + ([st_pl, st_pl] if kw["return_stats"] else [])
+        return spmd.local(fn, (q, k, v), (q_pl, kv_pl, kv_pl), outs)
+
+    kv_off = spmd.block_offset(k.shape, mesh, kv_pl)[1]
+    skv_loc = k.shape[1]
+    for i in split:
+        skv_loc //= mesh.size(i)
+    kv_len = k.shape[1] if kw["kv_len"] is None else kw["kv_len"]
+    local_len = min(max(kv_len - kv_off, 0), skv_loc)
 
     def fn(ql, kl, vl):
-        return flash_attention(ql, kl, vl, q_offset=q_offset + offset[1],
-                               **kw)
-    outs = [q_pl] + ([st_pl, st_pl] if kw["return_stats"] else [])
-    return spmd.local(fn, (q, k, v), (q_pl, kv_pl, kv_pl), outs)
+        o, m, l = flash_attention(
+            ql, kl, vl, q_offset=q_offset + offset[1],
+            **dict(kw, kv_len=local_len, return_stats=True))
+        return o[None], m[None], l[None]
+    lead = lambda pl: [Shard(0) if i in split else
+                       (Shard(p.dim + 1) if p.is_shard() else p)
+                       for i, p in enumerate(pl)]
+    parts = spmd.local(fn, (q, k, v), (q_pl, kv_pl, kv_pl),
+                       [lead(q_pl), lead(st_pl), lead(st_pl)])
+    o, m, l = _merge_kv_split(*parts, q_pl, st_pl)
+    if kw["return_stats"]:
+        return o, m, l
+    return o
+
+
+def _merge_kv_split(o, m, l, o_pl, st_pl):
+    """Flash partials stacked on a leading dim that is sharded over the
+    mesh dims of a kv split -> the merged (out, m, l) laid out by o_pl
+    and st_pl, as merge_attention combines them: the max and the
+    weighted sums over that dim are reductions (all-reduces) across
+    those mesh dims, each done once."""
+    mesh = o.device_mesh
+    m_star = m.amax(0).redistribute(mesh, st_pl)
+    safe = torch.where(torch.isinf(m_star), 0.0, m_star)
+    w = l * torch.exp(m - safe[None])                     # (n, b, h, s)
+    den = w.sum(0).redistribute(mesh, st_pl)
+    num = (w.movedim(2, 3)[..., None] * o.float()).sum(0)
+    num = num.redistribute(mesh, o_pl)
+    out = num / torch.clamp(den, min=1e-37).movedim(1, 2)[..., None]
+    return out.to(o.dtype), m_star, den
 
 
 def merge_attention(parts):
@@ -408,6 +460,15 @@ def moe_defs(cfg, *, stacked: int = 0) -> dict:
     }
 
 
+def expert_counts(ids, n: int):
+    """How many of the int64 `ids` (all < n) name each of n slots:
+    ``torch.bincount(ids, minlength=n)``, with a size that does not
+    depend on the data (a fake tensor has none), and exact on the card
+    (integer adds)."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def moe_capacity(cfg, n_tokens: int) -> int:
     """Slots an expert takes: capacity_factor * t * k / e, rounded up to a
     multiple of 4, at least 4."""
@@ -448,8 +509,7 @@ def moe_gates(cfg, p, xf):
 def moe_dropped(cfg, gate_idx) -> int:
     """Assignments past their expert's capacity: which ones the stable
     sort decides, how many only the per-expert counts."""
-    counts = torch.bincount(gate_idx.reshape(-1),
-                            minlength=cfg.moe.num_experts)
+    counts = expert_counts(gate_idx.reshape(-1), cfg.moe.num_experts)
     cap = moe_capacity(cfg, gate_idx.shape[0])
     return int((counts - cap).clamp(min=0).sum())
 
@@ -471,7 +531,7 @@ def moe_block_local(cfg, p, x):
     probs, gate_vals, gate_idx = moe_gates(cfg, p, xf)
 
     # load-balancing aux loss (Switch-style)
-    assign_frac = torch.bincount(gate_idx.reshape(-1), minlength=e).float() \
+    assign_frac = expert_counts(gate_idx.reshape(-1), e).float() \
         / (t * k)
     aux = e * torch.sum(probs.mean(0) * assign_frac)
 
@@ -482,7 +542,7 @@ def moe_block_local(cfg, p, x):
     order = torch.argsort(eids, stable=True)
     se, st, sg = eids[order], tok[order], gate_vals.reshape(tk)[order]
 
-    counts = torch.bincount(se, minlength=e)
+    counts = expert_counts(se, e)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(tk, device=dev) - starts[se]
 
@@ -615,7 +675,7 @@ def moe_block_sharded(cfg, p, x, rules):
     gate_vals, gate_idx = gate_vals[:, :k], gate_idx[:, :k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-    frac = torch.bincount(gate_idx.reshape(-1), minlength=e).float() \
+    frac = expert_counts(gate_idx.reshape(-1), e).float() \
         / (tl * k)
     aux = e * torch.sum(probs.mean(0) * frac)
 
@@ -634,7 +694,7 @@ def moe_block_sharded(cfg, p, x, rules):
     se, st, sg = local_eid[order], tok[order], gflat[order]
     valid = se < e_loc
 
-    counts = torch.bincount(se, minlength=e_loc + 2)
+    counts = expert_counts(se, e_loc + 2)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(tk, device=dev) - starts[se]
     keep = valid & (pos < cap)

@@ -109,7 +109,7 @@ def decode_step(cfg, params, cache, token, pos):
     """One decode step; `pos` is unused (the recurrent state carries the
     position). Returns (logits, new cache)."""
     del pos
-    x = params["emb"][token[:, None]]
+    x = T.decode_embed(params, token)
     x, caches = decode_layers(cfg, T.unstack(params["blocks"]), x,
                               cache["conv"], cache["state"],
                               range(cfg.num_layers))

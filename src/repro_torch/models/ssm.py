@@ -158,7 +158,9 @@ def ssm_block(cfg, p, x, *, cache=None, return_state=False):
     x: (b, s, d). cache (decode, s == 1): {"conv": (b, cw-1, ch),
     "state": (b, h, p, n)}, read and not written. Returns (y, new cache or
     None); the prefill cache's conv holds the last cw-1 pre-conv inputs
-    [x, B, C], left-padded when s < cw-1."""
+    [x, B, C], left-padded when s < cw-1. On DTensors (under sharding
+    rules) the mixing runs on local blocks (``_mix_sharded``), for the
+    train pass, prefill and decode alike."""
     xi = spmd.einsum("bsd,dhp->bshp", x, p["wx"])
     z = spmd.einsum("bsd,dhp->bshp", x, p["wz"])
     Bv = spmd.einsum("bsd,dn->bsn", x, p["wB"])
@@ -170,12 +172,8 @@ def ssm_block(cfg, p, x, *, cache=None, return_state=False):
     xi = constrain(xi, "batch", "seq", None, "ssm_pdim")
     mix = {k: p[k] for k in ("conv_x", "conv_B", "conv_C", "D")}
     if spmd.is_dtensor(xi):
-        if cache is not None or return_state:
-            raise NotImplementedError(
-                "the Mamba2 block over DTensors runs the train/loss pass "
-                "only (no prefill state, no decode)")
-        g = _mix_sharded(cfg, mix, xi, z, Bv, Cv, dt, A)
-        new_cache = None
+        g, new_cache = _mix_sharded(cfg, mix, xi, z, Bv, Cv, dt, A, cache,
+                                    return_state)
     else:
         g, new_cache = _mix(cfg, mix, xi, z, Bv, Cv, dt, A, cache,
                             return_state)
@@ -245,30 +243,61 @@ def _mix(cfg, mix, xi, z, Bv, Cv, dt, A, cache, return_state):
     return g, new_cache
 
 
-def _mix_sharded(cfg, mix, xi, z, Bv, Cv, dt, A):
-    """_mix (train/loss pass) on each rank's local blocks: the batch and
-    the head_dim channels (ssm_pdim) stay where xi has them, with the
-    conv weights of those channels; a seq-sharded xi is gathered (the
-    scan runs along the sequence). B, C, dt, A and D are replicated over
-    the channel split. The gated norm that follows reduces over
-    head_dim, so it stays outside, on DTensors."""
+def _mix_sharded(cfg, mix, xi, z, Bv, Cv, dt, A, cache, return_state):
+    """_mix on each rank's local blocks: the batch and the head_dim
+    channels (ssm_pdim) stay where xi has them, with the conv weights of
+    those channels; a seq-sharded xi is gathered (the scan runs along
+    the sequence; a decode token is never seq-sharded). B, C, dt, A and
+    D are replicated over the channel split. The gated norm that follows
+    reduces over head_dim, so it stays outside, on DTensors.
+
+    The conv cache (b, cw-1, ch) holds the x channels of every head_dim
+    split, so a rank reads its own slice of them (and B, C whole) and
+    the new window's x channels are gathered over the split (cw-1
+    tokens); the state (b, h, p, n) keeps xi's batch and channel
+    split."""
     from torch.distributed.tensor import Replicate, Shard
-    x_pl, tok_pl, cx_pl = [], [], []
+    x_pl, tok_pl, cx_pl, st_pl = [], [], [], []
     for p in xi.placements:
         dim = p.dim if type(p) is Shard else None
         x_pl.append(p if dim in (0, 3) else Replicate())
         tok_pl.append(p if dim == 0 else Replicate())
         cx_pl.append(Shard(2) if dim == 3 else Replicate())
+        st_pl.append(Shard(2) if dim == 3 else x_pl[-1])
     rep = [Replicate()] * len(x_pl)
+    h, pd = xi.shape[2:]
+    mesh = xi.device_mesh
+    stateful = cache is not None or return_state
 
-    def fn(xi, z, Bv, Cv, dt, A, cx, cB, cC, D):
-        return _mix(cfg, {"conv_x": cx, "conv_B": cB, "conv_C": cC, "D": D},
-                    xi, z, Bv, Cv, dt, A, None, False)[0]
-    return spmd.local(
-        fn, (xi, z, Bv, Cv, dt, A, mix["conv_x"], mix["conv_B"],
-             mix["conv_C"], mix["D"]),
-        (x_pl, x_pl, tok_pl, tok_pl, tok_pl, rep, cx_pl, rep, rep, rep),
-        [x_pl])
+    def fn(xi, z, Bv, Cv, dt, A, cx, cB, cC, D, *old):
+        c = None
+        if cache is not None:
+            conv_x, conv_bc, state = old
+            c = {"conv": torch.cat([conv_x.flatten(2), conv_bc], dim=-1),
+                 "state": state}
+        g, new = _mix(cfg, {"conv_x": cx, "conv_B": cB, "conv_C": cC,
+                            "D": D}, xi, z, Bv, Cv, dt, A, c, return_state)
+        if not stateful:
+            return g
+        hp = xi.shape[2] * xi.shape[3]
+        win = new["conv"]
+        return (g, win[..., :hp].unflatten(2, xi.shape[2:]), win[..., hp:],
+                new["state"])
+
+    args = [xi, z, Bv, Cv, dt, A, mix["conv_x"], mix["conv_B"],
+            mix["conv_C"], mix["D"]]
+    in_pl = [x_pl, x_pl, tok_pl, tok_pl, tok_pl, rep, cx_pl, rep, rep, rep]
+    if cache is not None:
+        conv = cache["conv"]
+        args += [conv[..., :h * pd].unflatten(2, (h, pd)), conv[..., h * pd:],
+                 cache["state"]]
+        in_pl += [x_pl, tok_pl, st_pl]
+    if not stateful:
+        return spmd.local(fn, tuple(args), tuple(in_pl), [x_pl]), None
+    g, conv_x, conv_bc, state = spmd.local(
+        fn, tuple(args), tuple(in_pl), [x_pl, x_pl, tok_pl, st_pl])
+    conv_x = conv_x.redistribute(mesh, tok_pl).flatten(2)
+    return g, {"conv": torch.cat([conv_x, conv_bc], dim=-1), "state": state}
 
 
 def conv_cache_channels(cfg) -> int:

@@ -47,10 +47,10 @@ def param_defs(cfg) -> dict:
 
 def unstack(blocks: dict) -> list:
     """Every layer of a stacked param subtree, one ``torch.unbind`` a
-    leaf: its backward stacks the layers' grads in one allocation, where
-    taking layer l with ``v[l]`` builds a zero tensor the size of the
-    whole leaf in each layer's backward."""
-    cols = {k: unstack(v) if isinstance(v, dict) else torch.unbind(v, 0)
+    leaf (``spmd.unbind`` on a DTensor): its backward stacks the layers'
+    grads in one allocation, where taking layer l with ``v[l]`` builds a
+    zero tensor the size of the whole leaf in each layer's backward."""
+    cols = {k: unstack(v) if isinstance(v, dict) else spmd.unbind(v)
             for k, v in blocks.items()}
     n = len(next(iter(cols.values())))
     return [{k: c[l] for k, c in cols.items()} for l in range(n)]
@@ -86,14 +86,15 @@ def decode_attention(cfg, bp_attn, q, k, v, ctx_k, ctx_v, tail_k, tail_v,
                      tail_pos: int):
     """Attend a single new token over [static context] + [tail buffer].
 
-    ctx_*: (b, cap, hkv, hd) read-only; tail_*: (b, DECODE_TAIL, hkv, hd).
-    The new (k, v) is written at tail_pos IN PLACE (the reference returns
-    updated copies). Returns (o, tail_k, tail_v)."""
+    ctx_*: (b, cap, hkv, hd) read-only, possibly seq-sharded;
+    tail_*: (b, DECODE_TAIL, hkv, hd). The new (k, v) is written at
+    tail_pos IN PLACE (the reference returns updated copies), on each
+    rank's own block of a DTensor tail. Returns (o, tail_k, tail_v)."""
     if not 0 <= tail_pos < tail_k.shape[1]:
         raise ValueError(f"decode position {tail_pos} outside the "
                          f"{tail_k.shape[1]}-token tail buffer")
-    tail_k[:, tail_pos] = k[:, 0]
-    tail_v[:, tail_pos] = v[:, 0]
+    spmd.write(tail_k, tail_pos, k[:, 0])
+    spmd.write(tail_v, tail_pos, v[:, 0])
     p1 = L.flash_attention(q, ctx_k, ctx_v, causal=False,
                            kv_chunk=max(cfg.attn_chunk, 2048),
                            return_stats=True)
@@ -164,9 +165,9 @@ def _xent_sum(cfg, params, x, labels, mask):
     logits = unembed(cfg, params, x).float()
     lse = torch.logsumexp(logits, dim=-1)
     # the label logits keep their gathered (.., 1) shape into the
-    # subtraction: on a vocab-sharded DTensor the gather is a masked
-    # partial sum, reduced there with a mask of that shape
-    lab = torch.gather(logits, -1, labels[..., None].long())
+    # subtraction: on a vocab-sharded DTensor the pick is a partial sum,
+    # reduced there
+    lab = spmd.take_label(logits, labels)
     return torch.sum((lse[..., None] - lab)[..., 0] * mask)
 
 
@@ -230,11 +231,21 @@ def cache_axes(cfg):
     return {"k": ax, "v": ax, "tail_k": tl, "tail_v": tl}
 
 
+def decode_embed(params, token):
+    """The embedding of one token a row, (b, 1, d). Not a reference site:
+    on a vocab-sharded table the lookup is a masked partial sum
+    (``spmd.embed``; GSPMD partitions its gather so), reduced here once,
+    so that the weight-stationary decode moves no weight; the plain
+    lookup without rules."""
+    return constrain(spmd.embed(params["emb"], token[:, None]), "batch",
+                     "block_seq", None)
+
+
 def decode_step(cfg, params, cache, token, pos: int):
     """One decode step. token: (b,) int; pos: global position
     (pos >= context capacity; the new token goes to the tail buffer).
     Updates cache's tail buffers in place and returns (logits, cache)."""
-    x = params["emb"][token[:, None]]                          # (b, 1, d)
+    x = decode_embed(params, token)                            # (b, 1, d)
     positions = torch.full((1,), pos, device=x.device)
     for l, bp in enumerate(unstack(params["blocks"])):
         x, _, _ = _block(cfg, bp, x, positions,

@@ -27,7 +27,7 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.device import resolve
 from repro_torch.distributed.sharding import (Rules, Sharding,
                                               spec_placements, use_rules)
-from repro_torch.distributed.spmd import is_dtensor
+from repro_torch.distributed.spmd import is_dtensor, shard_dim
 from repro_torch.models.api import Model
 from repro_torch.training.optimizer import AdamW, AdamWState
 from repro_torch.tree import flatten, leaves, tree_map, unflatten
@@ -85,13 +85,37 @@ def _to_param_layout(g, p):
     return g
 
 
+def _rows_gathered(x):
+    """A batch leaf with every rank holding all its rows: a DTensor
+    sharded on its batch dim is gathered on that dim (its other
+    placements kept); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if shard_dim(p) == 0 else p for p in x.placements])
+
+
+def microbatch(x, rows, mb: int, i: int):
+    """Microbatch i of mb of the batch leaf x: global rows
+    [i b/mb, (i+1) b/mb), as the reference's reshape and scan take them,
+    cut from `rows` (``_rows_gathered(x)``) and laid out as x is, so that
+    each microbatch holds the same rows on any mesh."""
+    n = x.shape[0] // mb
+    part = rows[i * n:(i + 1) * n]
+    if is_dtensor(x):
+        return part.redistribute(x.device_mesh, x.placements)
+    return part
+
+
 def build_train_step(model: Model, tcfg: TrainConfig,
                      rules: Optional[Rules] = None) -> tuple:
     """Returns (train_step, opt): train_step(params, opt_state, batch) ->
     (params, opt_state, metrics), updating params and opt_state in
     place; the loss runs under `rules` (None: no mesh). With
-    tcfg.microbatches > 1 the batch is split on its first axis and the
-    microbatch grads are summed in fp32, then divided by their count."""
+    tcfg.microbatches > 1 the batch is split on its first axis
+    (``microbatch``) and the microbatch grads are summed in fp32, then
+    divided by their count."""
     opt = AdamW(tcfg, model.cfg.moment_dtype)
 
     def loss_fn(params, batch):
@@ -105,15 +129,14 @@ def build_train_step(model: Model, tcfg: TrainConfig,
     def train_step(params, opt_state, batch):
         if tcfg.microbatches > 1:
             mb = tcfg.microbatches
-            batches = tree_map(
-                lambda x: x.reshape(mb, x.shape[0] // mb, *x.shape[1:]),
-                batch)
             loss = None
+            rows = tree_map(_rows_gathered, batch)
             grads = tree_map(lambda p: torch.zeros_like(
                 p, dtype=torch.float32) if is_dtensor(p) else torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
             for i in range(mb):
-                l, g = grads_of(params, tree_map(lambda x: x[i], batches))
+                l, g = grads_of(params, tree_map(
+                    lambda x, r: microbatch(x, r, mb, i), batch, rows))
                 for acc, gi in zip(leaves(grads), leaves(g)):
                     acc.add_(gi)
                 del g

@@ -634,3 +634,61 @@ def test_jit_train_step_on_one_rank_nccl_mesh(cuda):
             assert float((a - b).abs().max()) <= bound
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["sparkv-qwen3-4b", "mamba2-130m"])
+def test_prefill_and_decode_on_one_rank_nccl_mesh(cuda, arch):
+    """chip_smoke's path P at smoke size: a prefill and 4 decode steps
+    over DTensors on a (1, 1) mesh of a one-rank NCCL group (the dry
+    run's prefill and weight-stationary rules) against the plain port on
+    the card, from the same fp32 params and tokens: logits and caches
+    within 1e-6 (a one-device mesh runs the same kernels)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.api import lay_out
+    from repro_torch.training.trainer import partitioned, shard_tree
+    from repro_torch.tree import leaves, tree_map
+    if dist.is_initialized():
+        pytest.skip("a process group is already running in this process")
+    model = build_model(get_smoke(arch))
+    params = tree_map(lambda t: t.float(), model.init(0, device=cuda))
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, 512, size=(2, 40)), device=cuda)
+    toks = [torch.as_tensor(t, device=cuda)
+            for t in rng.integers(0, 512, size=(4, 2))]
+
+    def serve(p, rp=None, rd=None):
+        lay = (lambda t, ax, r: lay_out(t, ax, r)) if rp else \
+            (lambda t, ax, r: t)
+        with torch.no_grad(), partitioned(rp):
+            x = rp.distribute(tokens, ("batch", None)) if rp else tokens
+            logits, pre = lay(model.prefill(p, {"tokens": x}),
+                              model.prefill_out_axes(), rp)
+        out = [logits]
+        with torch.no_grad(), partitioned(rd):
+            cache = lay(model.decode_cache(tree_map(torch.clone, pre), rd),
+                        model.cache_axes(), rd)
+            for i, t in enumerate(toks):
+                t = rd.distribute(t, ("batch",)) if rd else t
+                lg, cache = model.decode_step(p, cache, t, 40 + i)
+                out.append(lg)
+        return out + leaves(pre) + leaves(cache)
+
+    want = serve(params)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_local_mesh((1, 1), device="cuda")
+        rp = make_rules(model.cfg, mesh)
+        rd = make_rules(model.cfg, mesh, weight_stationary=True)
+        got = serve(shard_tree(params, model.param_shardings(rp)), rp, rd)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert type(a).__name__ == "DTensor"
+            a = a.to_local()
+            assert a.device.type == "cuda"
+            assert float((a.float() - b.float()).abs().max()) <= 1e-6
+    finally:
+        dist.destroy_process_group()

@@ -45,7 +45,10 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.launch.train", "repro_torch.launch.mesh",
             "repro_torch.distributed", "repro_torch.distributed.sharding",
             "repro_torch.distributed.spmd",
-            "repro_torch.distributed.analytic"} <= set(mods)
+            "repro_torch.distributed.analytic",
+            "repro_torch.distributed.roofline",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.calibrate"} <= set(mods)
     code = f"""
 import sys
 BLOCKED = {BLOCKED!r}

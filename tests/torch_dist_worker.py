@@ -37,7 +37,8 @@ from repro_torch.configs import TrainConfig, get_smoke  # noqa: E402
 from repro_torch.configs.base import (MoEConfig, ModelConfig,  # noqa: E402
                                       ShapeConfig)
 from repro_torch.convert import to_tensor  # noqa: E402
-from repro_torch.distributed.sharding import (make_rules,  # noqa: E402
+from repro_torch.distributed.sharding import (Sharding,  # noqa: E402
+                                              make_rules, spec_placements,
                                               use_rules)
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -88,9 +89,12 @@ def per_shard_moe(n_data):
     return moe_block
 
 
-def case_step(arch, mesh_shape, axes, overrides, steps=2, batch=4, seq=32):
+def case_step(arch, mesh_shape, axes, overrides, steps=2, batch=4, seq=32,
+              microbatches=1, masked=0):
     """jit_train_step on the mesh against build_train_step on one rank,
-    from the same numpy-drawn fp32 weights and data_batch."""
+    from the same numpy-drawn fp32 weights and data_batch, both with
+    `microbatches`; the last label of the first `masked` rows is masked
+    out (-1), so that the microbatches' loss normalizers differ."""
     L.bf16_grad_barrier = lambda x: x
     moe = overrides.pop("moe", None)
     cfg = dataclasses.replace(get_smoke(arch), **overrides)
@@ -103,7 +107,7 @@ def case_step(arch, mesh_shape, axes, overrides, steps=2, batch=4, seq=32):
     # the reference's default schedule (lr 3e-4, 100 warmup steps): Adam's
     # first steps move every element by about lr * sign(g), so a larger
     # lr turns fp32 noise in near-zero grads into param differences
-    tcfg = TrainConfig(total_steps=4)
+    tcfg = TrainConfig(total_steps=4, microbatches=microbatches)
     shape = ShapeConfig("t", "train", seq, batch)
     n_data = rules.axis_size(rules.table["batch"])
 
@@ -112,6 +116,8 @@ def case_step(arch, mesh_shape, axes, overrides, steps=2, batch=4, seq=32):
             b = data_batch(cfg, tcfg, step, batch, seq, device=CPU)
             if "frames" in b:
                 b["frames"] = b["frames"].float()
+            if masked:
+                b["tokens"][:masked, -1] = -1
             yield b
 
     # one rank, no mesh
@@ -368,8 +374,114 @@ def case_shards(layouts):
     return res
 
 
+def _inputs(cfg, batch, seq, seed):
+    """A prefill's inputs and `steps` decode tokens, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        x = {"frames": torch.from_numpy(rng.normal(
+            size=(batch, seq, cfg.d_model)).astype(np.float32) * 0.5)}
+    else:
+        x = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(batch, seq)).astype(np.int64))}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         size=(8, batch)).astype(np.int64))
+    return x, toks
+
+
+def _errs(got, want, pre=""):
+    """{path: rel_err} over the tensor leaves of two like trees."""
+    if isinstance(want, dict):
+        out = {}
+        for k in want:
+            out.update(_errs(got[k], want[k], f"{pre}/{k}"))
+        return out
+    if isinstance(want, (tuple, list)):
+        out = {}
+        for i, (a, b) in enumerate(zip(got, want)):
+            out.update(_errs(a, b, f"{pre}/{i}"))
+        return out
+    return {pre or "/": rel_err(got, want)}
+
+
+def _placements(tree, pre=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in tree:
+            out.update(_placements(tree[k], f"{pre}/{k}"))
+        return out
+    if isinstance(tree, (tuple, list)):
+        out = {}
+        for i, a in enumerate(tree):
+            out.update(_placements(a, f"{pre}/{i}"))
+        return out
+    return {pre: str(tuple(tree.placements))}
+
+
+def case_serve(archs, mesh_shape, axes, steps=4, batch=4, seq=32):
+    """Sharded prefill (the prefill rules) and `steps` sharded decode
+    steps (weight-stationary rules) of each arch's smoke config, fp32,
+    against the same on one rank without a mesh, from the same
+    numpy-drawn weights and inputs. The prefill's outputs are laid out by
+    prefill_out_axes, the decode cache by cache_axes."""
+    from repro_torch.models.api import lay_out
+    from repro_torch.training.trainer import partitioned
+    mesh = make_local_mesh(tuple(mesh_shape), tuple(axes), device=CPU)
+    res = {}
+    for arch in archs:
+        cfg = get_smoke(arch)
+        if cfg.moe is not None:       # no assignment dropped
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=8.0))
+        model = build_model(cfg)
+        params = draw(model, 3)
+        x, toks = _inputs(cfg, batch, seq, 5)
+        encdec = cfg.family == "encdec"
+        pos0 = 0 if encdec else seq
+
+        def run(rules_pre, rules_dec, params_pre, params_dec, x, toks):
+            with torch.no_grad(), partitioned(rules_pre):
+                out = model.prefill(params_pre, x)
+                if rules_pre is not None:
+                    out = lay_out(out, model.prefill_out_axes(), rules_pre)
+            pre = out if encdec else out[1]
+            logits = [] if encdec else [out[0]]
+            with torch.no_grad(), partitioned(rules_dec):
+                cache = model.decode_cache(pre, rules_dec)
+                if rules_dec is not None:
+                    cache = lay_out(cache, model.cache_axes(), rules_dec)
+                for i in range(steps):
+                    lg, cache = model.decode_step(params_dec, cache, toks[i],
+                                                  pos0 + i)
+                    logits.append(lg)
+            return out, logits, cache
+
+        ref = run(None, None, params, params, x, toks)
+        rp = make_rules(cfg, mesh)
+        rd = make_rules(cfg, mesh, weight_stationary=True)
+        pp = shard_tree(params, model.param_shardings(rp))
+        pd = shard_tree(draw(model, 3), model.param_shardings(rd))
+        xs = shard_tree(x, {k: Sharding(mesh, spec_placements(mesh, v))
+                            for k, v in model.input_pspecs(
+                                ShapeConfig("p", "prefill", seq, batch),
+                                rp).items()})
+        ts = [rd.distribute(t, ("batch",)) for t in toks]
+        got = run(rp, rd, pp, pd, xs, ts)
+        from torch.distributed.tensor import DTensor
+        res[arch] = {
+            "prefill": _errs(got[0], ref[0]),
+            "logits": [rel_err(a, b) for a, b in zip(got[1], ref[1])],
+            "cache": _errs(got[2], ref[2]),
+            "dtensors": all(isinstance(t, DTensor) for t in
+                            leaves(got[2]) + list(got[1])),
+            "cache_placements": _placements(got[2]),
+            "fallbacks": dict(rp.fallbacks),
+        }
+    return res
+
+
 CASES = {"step": case_step, "moe": case_moe, "psum": case_psum,
-         "elastic": case_elastic, "shards": case_shards}
+         "elastic": case_elastic, "shards": case_shards,
+         "serve": case_serve}
 
 
 def main():
