@@ -37,19 +37,27 @@ Phases, in order; any failure exits non-zero:
      one kernel launch each), each against the plain version and
      layers.flash_attention; then one long cache (32768 positions,
      kv_len 32000) in bf16 and fp32;
-  7. path E1: SparKVServer.serve_fleet on path A's server and context: 32
+  7. path K: both attention kernels at the head shapes (hq, hkv,
+     head_dim) of every attention-bearing config, ten in all, at full
+     width and b = 1, seeded random q/k/v: sparse_prefill_attention over
+     2048 tokens (causal, the serving mass, 128-token blocks) and
+     decode_attention at kv_len 2048 and 32,000 in bf16, both at 2048 in
+     fp32; each call one launch, held against its plain version on the
+     same inputs and lists; bf16 timed beside its bound and SDPA (masked
+     for block-sparse, enable_gqa for decode); the path's wall time;
+  8. path E1: SparKVServer.serve_fleet on path A's server and context: 32
      jobs, seeded Poisson arrivals, the policies sparkv, strong_hybrid,
      cachegen and local_prefill mixed, a 2-slot WFQ run queue, SLO
      admission with a deadline and 8 decoded tokens a request; then one
      load_context of a streaming policy the fleet admitted (sparkv where
      it did), in exactly one kv_dequant launch;
-  8. path E2: a standalone ServingCluster at sparkv-qwen3-4b's width
+  9. path E2: a standalone ServingCluster at sparkv-qwen3-4b's width
      with the planner trained on the card: 256 requests of the traffic
      mix of examples/serve_fleet.py on 4 devices and 2 APs, a KV memory
      budget that forces evictions, the cloud KV store, a handoff storm
      with the fleet LP rebalancer and the online predictor refresh on
      the card; run twice, and the two fleet fingerprints must be equal;
-  9. path F: granite-moe-3b-a800m (the MoE family) at full width and
+ 10. path F: granite-moe-3b-a800m (the MoE family) at full width and
      depth through SparKVServer, random bf16 weights from a seed; one
      2048-token context (1024-token chunks, 64 KV chunks of head_dim 64);
      requests sparkv and local_prefill, 8 new tokens each: the streaming
@@ -57,24 +65,24 @@ Phases, in order; any failure exits non-zero:
      bit-equal to the plain dequant of the same stored chunks,
      local_prefill top-1 1.0; then the MoE layers' capacity drop rate
      over the context's prefill;
- 10. path G: mamba2-130m (SSM) and zamba2-2.7b (hybrid) at full width and
+ 11. path G: mamba2-130m (SSM) and zamba2-2.7b (hybrid) at full width and
      depth, random bf16 weights from a seed: a 2048-token prefill and 8
      decode steps each, timed with CUDA events; the first step's logits
      against the 2049-token prefill's last logits (printed), and the same
      check on an fp32 copy of the weights at 256 tokens (limit 0.15, as
      tests/test_models.py). Each model is freed before the next is built;
- 11. path H: whisper-tiny (enc-dec) at full width and depth, random bf16
+ 12. path H: whisper-tiny (enc-dec) at full width and depth, random bf16
      weights: prefill (encode + cross-K/V) of 4 x 1500 frames and 32
      greedy decode steps, CUDA events; 16 teacher-forced decode steps
      against decode_train's logits on an fp32 copy (limit 0.15) and in
      bf16 (printed);
- 12. path T1: qwen2.5-3b trained at full width and depth (bf16 params,
+ 13. path T1: qwen2.5-3b trained at full width and depth (bf16 params,
      fp32 moments, remat "full"): 6 build_train_step steps on data_batch
      at 2 x 1024 tokens, loss, grad norm, lr and ms a step (CUDA events),
      peak memory, tokens/s and model FLOP/s; loss and grad norm finite,
      params changed; then microbatches=2 against 1 on the first batch
      (loss within 5e-3, params within 2e-2, tests/test_training.py);
- 13. path S: the same training through the sharded step: a one-rank
+ 14. path S: the same training through the sharded step: a one-rank
      NCCL process group (a local store, no gloo), make_local_mesh((1, 1))
      and make_rules, qwen2.5-3b at full width and depth through
      jit_train_step (DTensor params and moments) for T1's first 3 steps
@@ -83,12 +91,12 @@ Phases, in order; any failure exits non-zero:
      peak memory beside T1's; then compressed_psum over one layer's grads
      on NCCL (the mean equals the grads to int8 rounding, the residual
      carries); the group is destroyed before T2;
- 14. path T2: whisper-tiny's train_loop at 4 x 1500 frames, 12 steps,
+ 15. path T2: whisper-tiny's train_loop at 4 x 1500 frames, 12 steps,
      a checkpoint every 4, uninterrupted and with a failure injected at
      step 7 and a restart from the last commit, under deterministic
      algorithms: the final params and moments bit-equal; the checkpoint
      write and restore seconds;
- 15. path P: prefill and decode over DTensors: a one-rank NCCL group, a
+ 16. path P: prefill and decode over DTensors: a one-rank NCCL group, a
      (1, 1) mesh and the dry run's rules (prefill, and weight-stationary
      for decode); sparkv-qwen3-4b, then mamba2-130m, at full width and
      depth, random bf16 weights from a seed: a 2048-token prefill and 8
@@ -96,7 +104,7 @@ Phases, in order; any failure exits non-zero:
      weights and tokens, every logits tensor and the prefill and final
      caches within 1e-6; ms a prefill and a decode step (CUDA events)
      and ops a call, through DTensor and plain; the group is destroyed;
- 16. path R: the dry run in a subprocess: a fake 256-rank process group,
+ 17. path R: the dry run in a subprocess: a fake 256-rank process group,
      the 16x16 production mesh typed CUDA over fake tensors, and the
      cells mamba2-130m x decode_32k and granite-moe-3b-a800m x
      decode_32k; each record's status, seconds, peak bytes a rank,
@@ -633,6 +641,81 @@ def _causal_pairs(idx, cnt, q_block, kv_block):
     return int((per_tile * n).sum())
 
 
+def sparse_prefill_kept(q, k, v, mass):
+    """ops.sparse_prefill_attention(q, k, v) as a user calls it, with the
+    arguments it hands the kernel observed (not changed); returns (out,
+    cnt, the kernel's args, block-sparse launches during the call, wall
+    seconds)."""
+    import torch
+    from repro_torch.kernels.block_sparse_attn import kernel as BK
+    from repro_torch.kernels.block_sparse_attn import ops as BO
+    seen = {}
+    launch = BK.block_sparse_attention
+
+    def launch_and_keep(*args, **kw):
+        seen["args"] = args
+        return launch(*args, **kw)
+
+    before = BK.LAUNCHES["block_sparse_attention"]
+    BK.block_sparse_attention = launch_and_keep
+    try:
+        t0 = time.perf_counter()
+        out, cnt = BO.sparse_prefill_attention(q, k, v, mass=mass)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        BK.block_sparse_attention = launch
+    return (out, cnt, seen["args"],
+            BK.LAUNCHES["block_sparse_attention"] - before, wall)
+
+
+def block_sparse_vs_sdpa(qf, kf, vf, idx, cnt, g, qb, flush):
+    """The bf16 block-sparse kernel and SDPA under the same token mask
+    (the listed tiles, causal), timed in turns, and the kernel's bound
+    terms: bytes (q, k, v, o and the lists moved once) and operations (4 d,
+    QK^T and PV, for each (query, key) pair the listed tiles leave to the
+    causal mask). Returns (ms, library ms, bytes, operations)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.block_sparse_attn import kernel as BK
+    from repro_torch.kernels.block_sparse_attn.ref import block_mask_dense
+    bh, n_tokens, d = qf.shape
+    n_qb = n_tokens // qb
+    q4, k4, v4 = (x.view(1, -1, n_tokens, d) for x in (qf, kf, vf))
+    tok = block_mask_dense(idx, cnt, n_qb, n_qb)
+    tok = tok.repeat_interleave(qb, 1).repeat_interleave(qb, 2)
+    tok &= torch.ones(n_tokens, n_tokens, dtype=torch.bool,
+                      device=qf.device).tril()
+    mask = tok.view(1, bh, n_tokens, n_tokens)
+    ms, lib_ms = time_in_turns(
+        lambda: BK.block_sparse_attention(qf, kf, vf, idx, cnt, kv_group=g),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                               enable_gqa=True), flush)
+    nbytes = ((2 * qf.numel() + kf.numel() + vf.numel()) * qf.element_size()
+              + (idx.numel() + cnt.numel()) * 4)
+    return ms, lib_ms, nbytes, 4 * d * _causal_pairs(idx, cnt, qb, qb)
+
+
+def decode_vs_sdpa(q, k, v, n, flush):
+    """The decode kernel at kv_len n and SDPA (``enable_gqa``) over the
+    same n keys, timed in turns, and the kernel's bound terms: bytes (the
+    n valid keys and values, q and the output moved once) and operations
+    (4 d a query head and key). Returns (ms, library ms, bytes,
+    operations)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import kernel as DK
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    bq, bk, bv = (q.view(b, hq, 1, d), k[:, :n].transpose(1, 2),
+                  v[:, :n].transpose(1, 2))
+    ms, lib_ms = time_in_turns(
+        lambda: DK.decode_attention(q, k, v, n),
+        lambda: F.scaled_dot_product_attention(bq, bk, bv, enable_gqa=True),
+        flush)
+    nbytes = (2 * b * n * hkv * d + 2 * b * hq * d) * k.element_size()
+    return ms, lib_ms, nbytes, 4 * b * hq * n * d
+
+
 def path_c(cfg, params, err, device, *, n_tokens=8192, seed=0):
     """Sparse prefill attention at full width on layer 0's q/k/v; returns
     (launches during the path, the kernel's perf entry)."""
@@ -641,7 +724,6 @@ def path_c(cfg, params, err, device, *, n_tokens=8192, seed=0):
     from repro_torch.configs import SparKVConfig
     from repro_torch.kernels.block_sparse_attn import kernel as BK
     from repro_torch.kernels.block_sparse_attn import ops as BO
-    from repro_torch.kernels.block_sparse_attn.ref import block_mask_dense
     from repro_torch.models import layers as L
     from repro_torch.models.transformer import unstack
 
@@ -659,27 +741,10 @@ def path_c(cfg, params, err, device, *, n_tokens=8192, seed=0):
     print(f"[path C] layer 0 q {tuple(q.shape)} k/v {tuple(k.shape)} "
           f"{q.dtype}; {n_qb} q-blocks, mass {mass}", flush=True)
 
-    # observe the lists that sparse_prefill_attention hands the kernel,
-    # without changing the call
-    seen = {}
-    launch = BK.block_sparse_attention
-
-    def launch_and_keep(*args, **kw):
-        seen["args"] = args
-        return launch(*args, **kw)
-
     BK.reset_launches()
-    BK.block_sparse_attention = launch_and_keep
-    try:
-        t0 = time.perf_counter()
-        out, cnt = BO.sparse_prefill_attention(q, k, v, mass=mass)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        BK.block_sparse_attention = launch
-    launches = BK.LAUNCHES["block_sparse_attention"]
+    out, cnt, (qf, kf, vf, idx, cnt2), launches, wall = sparse_prefill_kept(
+        q, k, v, mass)
     check(launches == 1, f"path C: {launches} block-sparse launches, not 1")
-    qf, kf, vf, idx, cnt2 = seen["args"]
     tiles = int(cnt.sum())
     causal_tiles = hq * n_qb * (n_qb + 1) // 2
     print(f"[path C] sparse_prefill_attention {wall:.3f} s (masks + "
@@ -703,28 +768,15 @@ def path_c(cfg, params, err, device, *, n_tokens=8192, seed=0):
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     plain_ms = time_ms(lambda: BK.block_sparse_attention_plain(
         qf, kf, vf, idx, cnt2, kv_group=g), flush)
+    ms, lib_ms, nbytes, ops = block_sparse_vs_sdpa(qf, kf, vf, idx, cnt2, g,
+                                                   qb, flush)
     q4, k4, v4 = (x.view(1, -1, n_tokens, d) for x in (qf, kf, vf))
-    tok = block_mask_dense(idx, cnt2, n_qb, n_qb)
-    tok = tok.repeat_interleave(qb, 1).repeat_interleave(qb, 2)
-    tok &= torch.ones(n_tokens, n_tokens, dtype=torch.bool,
-                      device=device).tril()
-    mask = tok.view(1, hq, n_tokens, n_tokens)
-    ms, lib_ms = time_in_turns(
-        lambda: BK.block_sparse_attention(qf, kf, vf, idx, cnt2, kv_group=g),
-        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
-                                               enable_gqa=True), flush)
-    del tok, mask
     full_ms, dense_ms = time_in_turns(
         lambda: BK.block_sparse_attention(qf, kf, vf, full_idx, full_cnt,
                                           kv_group=g),
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                                enable_gqa=True), flush)
-    # bound: q, k, v, o and the lists moved once; 4 * d operations (QK^T
-    # and PV) for each (query, key) pair the causal mask leaves
-    nbytes = ((qf.numel() + kf.numel() + vf.numel() + qf.numel()) * 2
-              + (idx.numel() + cnt2.numel()) * 4)
-    pairs = _causal_pairs(idx, cnt2, qb, qb)
-    ops = 4 * d * pairs
+    pairs = ops // (4 * d)
     perf = _perf(err["block_sparse_attention"], ms, plain_ms, lib_ms,
                  nbytes, ops, BF16_FLOPS)
     print(f"[path C] block_sparse_attention {tiles} tiles, {pairs} causal "
@@ -747,7 +799,6 @@ def path_d(cache, hq, err, device, *, seed=0):
     """Decode attention over path A's assembled cache, one call per
     layer; returns (launches during the path, the kernel's perf entry)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attn import kernel as DK
     from repro_torch.kernels.decode_attn import ops as DO
     from repro_torch.models import layers as L
@@ -789,15 +840,9 @@ def path_d(cache, hq, err, device, *, seed=0):
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
 
     def timings(q, k, v, n):
-        bq, bk, bv = (q.view(b, hq, 1, d), k[:, :n].transpose(1, 2),
-                      v[:, :n].transpose(1, 2))
-        ms, lib_ms = time_in_turns(
-            lambda: DK.decode_attention(q, k, v, n),
-            lambda: F.scaled_dot_product_attention(bq, bk, bv,
-                                                   enable_gqa=True), flush)
+        ms, lib_ms, nbytes, _ = decode_vs_sdpa(q, k, v, n, flush)
         plain_ms = time_ms(lambda: DK.decode_attention_plain(q, k, v, n),
                            flush)
-        nbytes = (2 * n * hkv * d + 2 * b * hq * d) * k.element_size()
         return ms, plain_ms, lib_ms, nbytes
 
     def rate(nbytes, ms):
@@ -835,6 +880,114 @@ def path_d(cache, hq, err, device, *, seed=0):
           f"kernel {rate(lbytes, lms)}", flush=True)
     perf["max_abs_err"] = err["decode_attention"]
     return launches, perf
+
+
+def attention_configs():
+    """Every config of repro_torch.configs that has attention, with its
+    (hq, hkv, head_dim)."""
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
+    out = []
+    for arch in ["sparkv-qwen3-4b", *ASSIGNED_ARCHS]:
+        cfg = get_config(arch)
+        if cfg.has_attention:
+            out.append((arch, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.resolved_head_dim))
+    return out
+
+
+def path_k(err, device, *, n_tokens=2048, long_len=32000, seed=0):
+    """Both attention kernels at the head shapes of every attention-bearing
+    config, at full width, b = 1: sparse_prefill_attention over n_tokens
+    (causal, SparKVConfig().attention_mass, 128-token blocks) and
+    decode_attention at kv_len n_tokens and long_len, each call one launch
+    held against its plain version on the same inputs (and the same block
+    lists); bf16 timed beside its bound and SDPA, fp32 checked at n_tokens
+    only; prints a row a config and dtype (PERF.md's path K table).
+    Returns the launches by kernel."""
+    import torch
+    from repro_torch.configs import SparKVConfig
+    from repro_torch.kernels.block_sparse_attn import kernel as BK
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn import ops as DO
+
+    mass, qb = SparKVConfig().attention_mass, 128
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    launches = {"block_sparse_attention": 0, "decode_attention": 0}
+    rows = []
+    for i, (arch, hq, hkv, d) in enumerate(attention_configs()):
+        gen = torch.Generator(device=device).manual_seed(seed + i)
+        g = hq // hkv
+        for dn, dt in (("bfloat16", torch.bfloat16),
+                       ("float32", torch.float32)):
+            label = f"{arch} {hq}/{hkv}x{d} {dn}"
+            q, k, v = (torch.randn((1, n_tokens, h, d), generator=gen,
+                                   device=device).to(dt)
+                       for h in (hq, hkv, hkv))
+            out, _, (qf, kf, vf, idx, cnt), n, _ = sparse_prefill_kept(
+                q, k, v, mass)
+            check(n == 1, f"path K {label}: {n} block-sparse launches")
+            launches["block_sparse_attention"] += n
+            out = out.transpose(1, 2).reshape(hq, n_tokens, d)
+            plain = BK.block_sparse_attention_plain(qf, kf, vf, idx, cnt,
+                                                    kv_group=g)
+            _compare_close(err, "block_sparse_attention", out, plain, dn,
+                           f"path K {label} sparse vs plain")
+            e_bsa = _max_err(out, plain)
+            del q, k, v, out, plain
+            lens = (n_tokens, long_len) if dt == torch.bfloat16 \
+                else (n_tokens,)
+            dq = torch.randn((1, hq, d), generator=gen, device=device).to(dt)
+            dk, dv = (torch.randn((1, lens[-1], hkv, d), generator=gen,
+                                  device=device).to(dt) for _ in range(2))
+            e_dec = {}
+            for n_len in lens:
+                before = DK.LAUNCHES["decode_attention"]
+                out = DO.decode_attention(dq, dk, dv, n_len)
+                n = DK.LAUNCHES["decode_attention"] - before
+                check(n == 1, f"path K {label}: {n} decode launches")
+                launches["decode_attention"] += n
+                plain = DK.decode_attention_plain(dq, dk, dv, n_len)
+                _compare_close(err, "decode_attention", out, plain, dn,
+                               f"path K {label} decode len {n_len}")
+                e_dec[n_len] = _max_err(out, plain)
+            if dt != torch.bfloat16:
+                rows.append(dict(arch=arch, dtype=dn, hq=hq, hkv=hkv, d=d,
+                                 bsa_err=e_bsa, dec_err=e_dec))
+                continue
+            row = dict(arch=arch, dtype=dn, hq=hq, hkv=hkv, d=d,
+                       bsa_err=e_bsa, dec_err=e_dec,
+                       tiles=int(cnt.sum()))
+            ms, lib, nbytes, ops = block_sparse_vs_sdpa(qf, kf, vf, idx, cnt,
+                                                        g, qb, flush)
+            row["bsa"] = _perf(e_bsa, ms, None, lib, nbytes, ops,
+                               BF16_FLOPS)
+            for n_len in lens:
+                ms, lib, nbytes, ops = decode_vs_sdpa(dq, dk, dv, n_len,
+                                                      flush)
+                row[f"dec{n_len}"] = _perf(e_dec[n_len], ms, None, lib,
+                                           nbytes, ops, BF16_FLOPS)
+            rows.append(row)
+            del qf, kf, vf, idx, cnt, dq, dk, dv
+    for r in rows:
+        errs = (f"err vs plain: block-sparse {r['bsa_err']:.3e}, decode "
+                + ", ".join(f"{e:.3e} (len {n})"
+                            for n, e in r["dec_err"].items()))
+        if "bsa" not in r:
+            print(f"[path K] {r['arch']:22s} {r['hq']}/{r['hkv']}x{r['d']} "
+                  f"{r['dtype']}: {errs}")
+            continue
+        cells = []
+        for key, what in (("bsa", f"block-sparse {r['tiles']} tiles"),
+                          *((f"dec{n}", f"decode len {n}") for n in
+                            r["dec_err"])):
+            p = r[key]
+            cells.append(f"{what}: kernel {p['ms']:.6f} ms, bound "
+                         f"{p['bound_ms']:.6f} ms ({p['bound_by']}, "
+                         f"{p['bound_ms'] / p['ms']:.1%}), SDPA "
+                         f"{p['library_ms']:.6f} ms")
+        print(f"[path K] {r['arch']:22s} {r['hq']}/{r['hkv']}x{r['d']} "
+              f"{r['dtype']}: " + "; ".join(cells) + f"; {errs}")
+    return launches
 
 
 # ----------------------------------------------------------------------------
@@ -2163,6 +2316,14 @@ def main():
         # path D: decode attention over path A's cachegen cache
         launches["decode_attention"], perf["decode_attention"] = path_d(
             kept.pop("cache"), cfg.num_heads, att_err, device)
+        # path K: both attention kernels at every config's head shapes
+        t0 = time.perf_counter()
+        k_launches = path_k(att_err, device)
+        for name, n in k_launches.items():
+            launches[name] += n
+            perf[name]["max_abs_err"] = att_err[name]
+        print(f"[path K] {time.perf_counter() - t0:.1f} s wall (host clock), "
+              f"launches {k_launches}", flush=True)
 
         # path E1: serve_fleet on path A's server, then one load_context a
         # streaming policy the fleet admitted

@@ -17,14 +17,19 @@
 //
 // bf16 -> bsa_tc_kernel, the tensor cores (FlashAttention-2's design).
 // A CTA of NW warps takes 16 * NW query rows (NW = 8 where q_block is a
-// multiple of 128, else 4), each warp 16 rows. Q is copied once and held
-// as mma A fragments in registers (ldmatrix.x4). K and V come in 64-row
-// sub-tiles by 16-byte cp.async into a three-stage ring in shared memory
-// (Q passes through the third stage first), so the next two sub-tiles'
-// copies overlap the current products, with one barrier a sub-tile; the
-// 16-byte
-// chunks of a row are XOR-swizzled by (row % 8), so ldmatrix reads 8
-// rows without bank conflicts. S = Q K^T and O += P V run as
+// multiple of 128, else 4), each warp 16 rows. Head sizes 64, 80, 128 and
+// 256. Up to d = 128, Q is copied once and held as mma A fragments in
+// registers (ldmatrix.x4), and K and V come in 64-row sub-tiles by 16-byte
+// cp.async into a three-stage ring in shared memory (Q passes through the
+// third stage first), so the next two sub-tiles' copies overlap the
+// current products, with one barrier a sub-tile. At d = 256 the O
+// accumulators take 128 registers a thread: Q stays in shared memory and
+// its fragments are read at each k-step, and the ring has two stages
+// (192 KB at 128 rows), so the next sub-tile's copy overlaps the products.
+// The 16-byte chunks of a row are XOR-swizzled by (row % 8) (d 64, 128,
+// 256), or a row of d = 80 is padded to 11 chunks (mma_sm90.cuh,
+// tile_pitch), so ldmatrix reads 8 rows without bank conflicts; d = 80's
+// fifth k-step reads K by ldmatrix.x2. S = Q K^T and O += P V run as
 // mma.sync.m16n8k16 bf16 x bf16 -> fp32 (K read by ldmatrix as the
 // column-major B, V by ldmatrix.trans). The online softmax stays in
 // registers: a lane holds rows lane/4 and lane/4 + 8 and columns
@@ -43,7 +48,8 @@
 // One CTA of 256 threads takes 64 query rows and walks the list; each kv
 // block in 64-row sub-tiles: K^T into shared memory, S = Q K^T (each
 // thread a 4 x 4 patch), the online-softmax update in registers, P into
-// shared memory, then V over the K buffer and O += P V.
+// shared memory, then V over the K buffer and O += P V. At d = 80 a
+// thread's 5 output columns are one float4 group and one scalar.
 //
 // Both kernels read their own list (the TPU's scalar prefetch has no
 // counterpart): entries past block_cnt, or outside [0, skv / kv_block),
@@ -72,9 +78,9 @@ namespace {
 
 using namespace sm90;
 constexpr int TC_BN = 64;     // kv rows per sub-tile
-constexpr int TC_STAGES = 3;  // sub-tiles in the ring
 
-// rows x D from global (row stride D) into a swizzled tile, by cp.async
+// rows x D from global (row stride D) into a tile of pitch tile_pitch<D>,
+// by cp.async
 template <int D, int NT>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           int rows, int tid) {
@@ -87,7 +93,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 
 // The next sub-tile at or after (t, sub) of the list: listed (t <
 // n_list), inside k/v, and not hidden from every row up to row_last by
-// the causal mask. Returns its first kv row, or -1 past the list's end.
+// the causal mask. Returns its first kv row, or -1 past the list's end
+// (where t stays at n_list).
 __device__ __forceinline__ int next_subtile(const int32_t* list, int n_list,
                                             int n_kb, int kv_block,
                                             int causal, int row_last, int& t,
@@ -101,20 +108,41 @@ __device__ __forceinline__ int next_subtile(const int32_t* list, int n_list,
   return -1;
 }
 
+// How a head size shapes the tensor-core kernel. Up to d = 128 the warp's
+// Q fragments stay in registers (KS * 4 of them) and Q passes through the
+// ring's last stage; three stages. At d = 256 the O accumulators alone
+// are 128 fp32 registers a thread, so Q stays in shared memory beside the
+// ring and each k-step reads its fragments by ldmatrix (25% more shared
+// reads than K's), and the ring has two stages of 64 KB.
+template <int D>
+struct TcShape {
+  static constexpr bool kQRegs = D <= 128;
+  static constexpr int kStages = kQRegs ? 3 : 2;
+  static constexpr int kPitch = tile_pitch<D>();
+  static constexpr int kStage = 2 * TC_BN * kPitch;  // K, then V
+  // elements of shared memory at BM query rows a CTA
+  __host__ __device__ static constexpr int elems(int bm) {
+    return kStages * kStage + (kQRegs ? 0 : bm * kPitch);
+  }
+};
+
 // Grid: (bh, sq / BM), BM = 16 * NW; block NW * 32. Dynamic shared:
-// TC_STAGES stages of K [TC_BN][D] and V [TC_BN][D], bf16; Q [BM][D]
-// passes through the last stage before its first sub-tile arrives.
+// TcShape<D>::kStages stages of K [TC_BN][D] and V [TC_BN][D], bf16, at
+// pitch tile_pitch<D>; Q [BM][D] passes through the last stage before its
+// first sub-tile arrives, or (d = 256) stays after the ring.
 template <int D, int NW>
-__global__ void __launch_bounds__(NW * 32, NW == 4 ? 2 : 1)
+__global__ void __launch_bounds__(NW * 32, (NW == 4 && D <= 128) ? 2 : 1)
 bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v,
               const int32_t* __restrict__ block_idx,
               const int32_t* __restrict__ block_cnt, bf16* __restrict__ o,
               int sq, int skv, int n_qb, int max_nnz, int q_block,
               int kv_block, int kv_group, int causal, float scale_log2) {
+  using S = TcShape<D>;
   constexpr int BM = NW * 16, NT = NW * 32, KS = D / 16, NO = D / 8;
-  constexpr int STAGE = 2 * TC_BN * D;  // elements of a stage: K, then V
-  static_assert(BM <= 2 * TC_BN, "Q must fit in one stage");
+  constexpr int NS = S::kStages, STAGE = S::kStage;
+  static_assert(!S::kQRegs || BM * S::kPitch <= STAGE,
+                "Q must fit in one stage");
   extern __shared__ float4 smem4[];
   bf16* ring = reinterpret_cast<bf16*>(smem4);
 
@@ -130,38 +158,46 @@ bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vp = v + kv_off;
   const int32_t* list = block_idx + ((size_t)bh * n_qb + qb) * max_nnz;
   const int n_list = min(block_cnt[(size_t)bh * n_qb + qb], max_nnz);
+  int ct = 0, cs = 0;  // where the search for the next sub-tile starts
+  auto next = [&]() {
+    const int kv = next_subtile(list, n_list, n_kb, kv_block, causal,
+                                row_last, ct, cs);
+    cs += TC_BN;
+    return kv;
+  };
   auto load_kv = [&](int st, int first) {  // sub-tile at kv row `first`
     if (first < 0) return;
     load_tile<D, NT>(ring + st * STAGE, kp + (size_t)first * D, TC_BN, tid);
-    load_tile<D, NT>(ring + st * STAGE + TC_BN * D, vp + (size_t)first * D,
-                     TC_BN, tid);
+    load_tile<D, NT>(ring + st * STAGE + TC_BN * S::kPitch,
+                     vp + (size_t)first * D, TC_BN, tid);
   };
 
-  // prologue: Q into the last stage, the first two sub-tiles (kv0 at
-  // list position (t, sub), kv1 at (t1, s1)) into the first two
-  bf16* qs = ring + (TC_STAGES - 1) * STAGE;
+  // prologue: Q, then the first NS - 1 sub-tiles into the first stages;
+  // pend holds their first kv rows in order (-1 past the list's end)
+  bf16* qs = ring + (S::kQRegs ? (NS - 1) * STAGE : NS * STAGE);
   load_tile<D, NT>(qs, q + ((size_t)bh * sq + row0) * D, BM, tid);
   cp_async_commit();
-  int t = 0, sub = 0;
-  int kv0 = next_subtile(list, n_list, n_kb, kv_block, causal, row_last, t,
-                         sub);
-  load_kv(0, kv0);
-  cp_async_commit();
-  int t1 = t, s1 = sub + TC_BN;
-  int kv1 = kv0 < 0 ? -1
-                    : next_subtile(list, n_list, n_kb, kv_block, causal,
-                                   row_last, t1, s1);
-  load_kv(1, kv1);
-  cp_async_commit();
-  cp_async_wait<2>();  // Q has landed
+  int pend[NS - 1];
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    pend[st] = next();
+    load_kv(st, pend[st]);
+    cp_async_commit();
+  }
+  cp_async_wait<NS - 1>();  // Q has landed
   __syncthreads();
 
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
+  // A fragments of k-step kk of this warp's 16 Q rows
+  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
     ldsm_x4(qs + swz<D>(warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
                         2 * kk + (lane >> 4)),
-            qa[kk]);
+            a);
+  };
+  uint32_t qa[S::kQRegs ? KS : 1][4];
+  if constexpr (S::kQRegs) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) q_frag(kk, qa[kk]);
+  }
 
   float acc[NO][4];
 #pragma unroll
@@ -172,34 +208,59 @@ bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int r0 = wrow0 + (lane >> 2), r1 = r0 + 8;
   const int cq = 2 * (lane & 3);
 
-  for (int it = 0; kv0 >= 0; ++it) {
-    cp_async_wait<1>();  // this thread's copies of sub-tile it have landed
+  for (int it = 0; pend[0] >= 0; ++it) {
+    const int kv0 = pend[0];
+    cp_async_wait<NS - 2>();  // this thread's copies of sub-tile it
     // everyone's copies have landed, and everyone is done with sub-tile
-    // it - 1 (and Q), whose stage takes sub-tile it + 2
+    // it - 1 (and Q, where it passed through the ring), whose stage takes
+    // sub-tile it + NS - 1
     __syncthreads();
-    int t2 = t1, s2 = s1 + TC_BN;
-    const int kv2 = kv1 < 0 ? -1
-                            : next_subtile(list, n_list, n_kb, kv_block,
-                                           causal, row_last, t2, s2);
-    load_kv((it + 2) % TC_STAGES, kv2);
+    const int kv_new = next();
+    load_kv((it + NS - 1) % NS, kv_new);
     cp_async_commit();
+#pragma unroll
+    for (int st = 0; st < NS - 2; ++st) pend[st] = pend[st + 1];
+    pend[NS - 2] = kv_new;
 
     if (!causal || kv0 <= wrow0 + 15) {
-      const bf16* ks = ring + (it % TC_STAGES) * STAGE;
-      const bf16* vs = ks + TC_BN * D;
+      const bf16* ks = ring + (it % NS) * STAGE;
+      const bf16* vs = ks + TC_BN * S::kPitch;
       float s[TC_BN / 8][4];
 #pragma unroll
       for (int j = 0; j < TC_BN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      // two k-steps a K ldmatrix.x4; the last of an odd count (d = 80)
+      // from an .x2
 #pragma unroll
       for (int kk = 0; kk < KS; kk += 2) {
+        const bool two = kk + 1 < KS;
+        uint32_t qf[2][4];
+        if constexpr (S::kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            qf[0][e] = qa[kk][e];
+            qf[1][e] = qa[two ? kk + 1 : kk][e];
+          }
+        } else {
+          q_frag(kk, qf[0]);
+          if (two) q_frag(kk + 1, qf[1]);
+        }
 #pragma unroll
         for (int j = 0; j < TC_BN / 8; ++j) {
-          uint32_t b[4];
-          ldsm_x4(ks + swz<D>(8 * j + (lane & 7), 2 * kk + (lane >> 3)), b);
-          mma_bf16(s[j], qa[kk], b[0], b[1]);
-          mma_bf16(s[j], qa[kk + 1], b[2], b[3]);
+          if (two) {
+            uint32_t b[4];
+            ldsm_x4(ks + swz<D>(8 * j + (lane & 7), 2 * kk + (lane >> 3)),
+                    b);
+            mma_bf16(s[j], qf[0], b[0], b[1]);
+            mma_bf16(s[j], qf[1], b[2], b[3]);
+          } else {
+            uint32_t b[2];
+            ldsm_x2(ks + swz<D>(8 * j + (lane & 7),
+                                2 * kk + ((lane >> 3) & 1)),
+                    b);
+            mma_bf16(s[j], qf[0], b[0], b[1]);
+          }
         }
       }
 
@@ -264,10 +325,6 @@ bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
     }
-    kv0 = kv1;
-    t1 = t2;
-    s1 = s2;
-    kv1 = kv2;
   }
 
 #pragma unroll
@@ -291,7 +348,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* idx,
               const void* cnt, void* o, int bh, int sq, int skv, int n_qb,
               int max_nnz, int q_block, int kv_block, int kv_group,
               int causal, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (size_t)TC_STAGES * 2 * TC_BN * D;
+  const size_t smem = sizeof(bf16) * (size_t)TcShape<D>::elems(NW * 16);
   auto kern = bsa_tc_kernel<D, NW>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -317,9 +374,13 @@ constexpr int LDT = BM + 4;    // row stride of the transposed tiles (floats)
 
 // q: (bh, sq, D); k/v: (bh / kv_group, skv, D); o: (bh, sq, D).
 // block_idx: (bh, n_qb, max_nnz) i32; block_cnt: (bh, n_qb) i32.
-// Grid: (sq / BM, bh). Shared: qT[D][LDT], kv[max(D*LDT, BN*D)], pT[BN][LDT].
+// Grid: (sq / BM, bh). Shared: qT[D][LDT], kv[max(D*LDT, BN*D)], pT[BN][LDT]:
+// 87 KB at d = 128, two CTAs an SM; 157 KB at d = 256, one.
+// A thread's output columns: float4 groups c4 * 64 + tx * 4 (c4 < D / 64),
+// then, where 64 does not divide D (d = 80), D % 64 / 16 scalar columns
+// from (D / 64) * 64 + tx * (D % 64 / 16).
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
 block_sparse_attn_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -329,6 +390,8 @@ block_sparse_attn_kernel(const float* __restrict__ q,
                          int max_nnz, int q_block, int kv_block,
                          int kv_group, int causal, float scale) {
   constexpr int CPT = D / 16;  // output columns per thread
+  constexpr int F4 = D / 64;   // of them in float4 groups
+  constexpr int REM = CPT - 4 * F4;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* qT = smem;                                  // [D][LDT]
@@ -439,7 +502,7 @@ block_sparse_attn_kernel(const float* __restrict__ q,
         const float4 pp = *reinterpret_cast<const float4*>(&pT[j * LDT + ty * 4]);
         const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
 #pragma unroll
-        for (int c4 = 0; c4 < CPT / 4; ++c4) {
+        for (int c4 = 0; c4 < F4; ++c4) {
           const float4 vv = *reinterpret_cast<const float4*>(
               &kv[j * D + c4 * 64 + tx * 4]);
           const float vx[4] = {vv.x, vv.y, vv.z, vv.w};
@@ -448,6 +511,13 @@ block_sparse_attn_kernel(const float* __restrict__ q,
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               acc[i][c4 * 4 + e] = fmaf(pv[i], vx[e], acc[i][c4 * 4 + e]);
+        }
+#pragma unroll
+        for (int e = 0; e < REM; ++e) {
+          const float vx = kv[j * D + F4 * 64 + tx * REM + e];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[i][4 * F4 + e] = fmaf(pv[i], vx, acc[i][4 * F4 + e]);
         }
       }
     }
@@ -458,11 +528,15 @@ block_sparse_attn_kernel(const float* __restrict__ q,
   for (int i = 0; i < 4; ++i) {
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
-    for (int c4 = 0; c4 < CPT / 4; ++c4)
+    for (int c4 = 0; c4 < F4; ++c4)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         op[(ty * 4 + i) * D + c4 * 64 + tx * 4 + e] =
             l[i] > 0.f ? acc[i][c4 * 4 + e] * inv : 0.f;
+#pragma unroll
+    for (int e = 0; e < REM; ++e)
+      op[(ty * 4 + i) * D + F4 * 64 + tx * REM + e] =
+          l[i] > 0.f ? acc[i][4 * F4 + e] * inv : 0.f;
   }
 }
 
@@ -491,7 +565,7 @@ int launch_fp32(const void* q, const void* k, const void* v,
 extern "C" {
 
 // Returns a CUDA error code; 1 (cudaErrorInvalidValue) for a head size
-// other than 64 or 128, or rows other than 64 or 128 (bf16). The wrapper
+// other than 64, 80, 128 or 256, or rows other than 64 or 128 (bf16). The wrapper
 // has checked shapes and divisibility: sq % q_block == 0, q_block % 64 ==
 // 0 (% rows for bf16), kv_block % 64 == 0, skv % kv_block == 0.
 int block_sparse_attention_launch(const void* q, const void* k,
@@ -506,15 +580,14 @@ int block_sparse_attention_launch(const void* q, const void* k,
 #define BSA_ARGS                                                            \
   q, k, v, block_idx, block_cnt, o, bh, sq, skv, n_qb, max_nnz, q_block,    \
       kv_block, kv_group, causal, scale, s
-  if (is_bf16) {
-    if (d == 64 && rows == 64) return launch_tc<64, 4>(BSA_ARGS);
-    if (d == 64 && rows == 128) return launch_tc<64, 8>(BSA_ARGS);
-    if (d == 128 && rows == 64) return launch_tc<128, 4>(BSA_ARGS);
-    if (d == 128 && rows == 128) return launch_tc<128, 8>(BSA_ARGS);
-    return (int)cudaErrorInvalidValue;
+#define BSA_D(DD)                                                            \
+  if (d == DD) {                                                             \
+    if (!is_bf16) return launch_fp32<DD>(BSA_ARGS);                          \
+    if (rows == 64) return launch_tc<DD, 4>(BSA_ARGS);                       \
+    if (rows == 128) return launch_tc<DD, 8>(BSA_ARGS);                      \
   }
-  if (d == 64) return launch_fp32<64>(BSA_ARGS);
-  if (d == 128) return launch_fp32<128>(BSA_ARGS);
+  BSA_D(64) BSA_D(80) BSA_D(128) BSA_D(256)
+#undef BSA_D
 #undef BSA_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -41,12 +41,20 @@
 //   l sums the unrounded p), O += P V with V read by ldmatrix.trans.
 //   bf16 x bf16 products are exact in fp32, so this is the Pallas
 //   function up to the order of the sums, at a few instructions a key.
+//   g is a run-time value, any of 1..16. At d = 80 a K/V row in shared
+//   memory is padded to 11 16-byte chunks (mma_sm90.cuh, tile_pitch) and
+//   the fifth k-step reads K by ldmatrix.x2.
 // - fp32 -> decode_kernel, the CUDA cores (the tensor cores' TF32 would
 //   break the fp32 tolerance). R neighbouring lanes read one key row in
 //   16-byte pieces (d = 128: 32 lanes a row); each lane copies the pieces
 //   it will use into its own ring slots, so no barrier is needed; the
 //   row's dot product is reduced over its R lanes with shuffles and each
-//   lane keeps a running softmax over its columns.
+//   lane keeps a running softmax over its columns. R is a power of two:
+//   d = 80's 20 pieces take a warp, 12 lanes idle (37.5% of its lanes'
+//   work wasted). The group is a template (the q heads in registers):
+//   G in {1, 2, 3, 4, 8, 12, 16}, exact; any other g runs on a padded
+//   instance of the least G > g, the rows past g zero and never stored
+//   (g = 5 wastes 3/8).
 //
 // Scores are kept in log2 units (dot * scale * log2 e) so exp2 gives the
 // softmax. The split and the online softmax inside a CTA change only the
@@ -164,9 +172,10 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int hq, int hkv, int g, int kv_len, int chunk,
                  float scale_log2) {
   constexpr int KS = D / 16, NO = D / 8, CH = D / 8;
+  constexpr int P = tile_pitch<D>();  // d = 80: 88 (mma_sm90.cuh)
   // kStages of 64 keys: 96 KB at d = 128, so two CTAs fit on an SM (at
   // 160 KB a CTA, clusters of 16 do not all find room at once)
-  constexpr int STAGE = 2 * TC_KEYS * D, NS = kStages;
+  constexpr int STAGE = 2 * TC_KEYS * P, NS = kStages;
   extern __shared__ float4 smem4[];
   bf16* ring = reinterpret_cast<bf16*>(smem4);
   float* wm = reinterpret_cast<float*>(smem4);
@@ -187,7 +196,7 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int r = i / CH, c = i % CH, t = it * TC_KEYS + r;
       const size_t off = t < n ? (size_t)t * row_stride + c * 8 : 0;
       cp_async16(ks + swz<D>(r, c), kp + off, t < n);
-      cp_async16(ks + TC_KEYS * D + swz<D>(r, c), vp + off, t < n);
+      cp_async16(ks + TC_KEYS * P + swz<D>(r, c), vp + off, t < n);
     }
   };
 #pragma unroll
@@ -228,19 +237,29 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int key0 = it * TC_KEYS + warp * 16;  // this warp's 16 keys
     if (key0 >= n) continue;
     const bf16* ks = ring + (it % NS) * STAGE;
-    const bf16* vs = ks + TC_KEYS * D;
+    const bf16* vs = ks + TC_KEYS * P;
 
+    // two k-steps a K ldmatrix.x4; the last of an odd count (d = 80) from
+    // an .x2
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int kk = 0; kk < KS; kk += 2) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        uint32_t b[4];
-        ldsm_x4(ks + swz<D>(warp * 16 + 8 * j + (lane & 7),
-                            2 * kk + (lane >> 3)),
-                b);
-        mma_bf16(s[j], qa[kk], b[0], b[1]);
-        mma_bf16(s[j], qa[kk + 1], b[2], b[3]);
+        if (kk + 1 < KS) {
+          uint32_t b[4];
+          ldsm_x4(ks + swz<D>(warp * 16 + 8 * j + (lane & 7),
+                              2 * kk + (lane >> 3)),
+                  b);
+          mma_bf16(s[j], qa[kk], b[0], b[1]);
+          mma_bf16(s[j], qa[kk + 1 < KS ? kk + 1 : kk], b[2], b[3]);
+        } else {
+          uint32_t b[2];
+          ldsm_x2(ks + swz<D>(warp * 16 + 8 * j + (lane & 7),
+                              2 * kk + ((lane >> 3) & 1)),
+                  b);
+          mma_bf16(s[j], qa[kk], b[0], b[1]);
+        }
       }
     }
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -340,17 +359,30 @@ __device__ __forceinline__ void unpack(const uint4& u, float* x) {
   x[2] = __uint_as_float(u.z); x[3] = __uint_as_float(u.w);
 }
 
+__host__ __device__ constexpr int pow2_ceil(int x) {
+  return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2);
+}
+
 // Grid and clusters as decode_tc_kernel. Dynamic shared: the ring
 // [kStages][U][NP][K, V][kThreads] of 16-byte pieces; after the loop the
-// partials of finish().
-template <int G, int D>
+// partials of finish(). G is the template's group. Where PAD is false the
+// call's g is G; where it is true, g < G: the q rows past g are zeros and
+// their partials are never stored (g 5-7 run at G 8, 9-11 at 12, 13-15 at
+// 16). The exact instances keep g a constant: a run-time g costs the
+// G = 16 instances spills.
+template <int G, int D, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out, int skv,
-              int hq, int hkv, int kv_len, int chunk, float scale_log2) {
+              int hq, int hkv, int g_call, int kv_len, int chunk,
+              float scale_log2) {
+  const int g = PAD ? g_call : G;
   constexpr int VEC = 4;                        // values in a 16-byte piece
-  constexpr int R = D / VEC < 32 ? D / VEC : 32;  // lanes a key row
-  constexpr int NP = D / VEC / R;               // pieces a lane (1 or 2)
+  constexpr int PCS = D / VEC;                  // pieces a key row
+  // lanes a key row, a power of two for the shuffles; at d = 80 a row's 20
+  // pieces take 32 lanes and lanes 20-31 hold zeros
+  constexpr int R = PCS < 32 ? pow2_ceil(PCS) : 32;
+  constexpr int NP = (PCS + R - 1) / R;         // pieces a lane (1 or 2)
   constexpr int E = NP * VEC;                   // columns a lane
   constexpr int RPW = 32 / R;                   // key rows a warp-step
   constexpr int STEP = kWarps * RPW;            // key rows a CTA-step
@@ -358,12 +390,15 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   extern __shared__ float4 smem4[];
   uint4* ring = reinterpret_cast<uint4*>(smem4);
   float* wm = reinterpret_cast<float*>(smem4);
-  float* wl = wm + kWarps * G;
-  float* wacc = wl + kWarps * G;
+  float* wl = wm + kWarps * g;
+  float* wacc = wl + kWarps * g;
 
   const int split = blockIdx.x, hi = blockIdx.y, bi = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = lane / R, c = lane % R;
+  // piece p of this lane lies in the row (always, unless R does not
+  // divide PCS)
+  auto live = [&](int p) { return PCS % R == 0 || c + p * R < PCS; };
   const int t0 = split * chunk;
   const int n = max(0, min(chunk, kv_len - t0));  // valid keys here
   const int n_it = (n + STEP * U - 1) / (STEP * U);
@@ -382,10 +417,11 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int t = it * STEP * U + warp * RPW + rg + u * STEP;
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
-        const size_t off =
-            t < n ? (size_t)t * row_stride + (c + p * R) * VEC : 0;
-        cp_async16(slot(st, u, p, 0), kp + off, t < n);
-        cp_async16(slot(st, u, p, 1), vp + off, t < n);
+        const bool ok = t < n && live(p);
+        const size_t off = ok ? (size_t)t * row_stride + (c + p * R) * VEC
+                              : 0;
+        cp_async16(slot(st, u, p, 0), kp + off, ok);
+        cp_async16(slot(st, u, p, 1), vp + off, ok);
       }
     }
   };
@@ -396,13 +432,15 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   float qr[G][E];
-  const float* qp = q + ((size_t)bi * hq + (size_t)hi * G) * D;
+  const float* qp = q + ((size_t)bi * hq + (size_t)hi * g) * D;
 #pragma unroll
   for (int h = 0; h < G; ++h)
 #pragma unroll
     for (int p = 0; p < NP; ++p)
-      unpack(__ldg(reinterpret_cast<const uint4*>(qp + h * D +
-                                                  (c + p * R) * VEC)),
+      unpack(h < g && live(p)
+                 ? __ldg(reinterpret_cast<const uint4*>(qp + h * D +
+                                                        (c + p * R) * VEC))
+                 : make_uint4(0u, 0u, 0u, 0u),
              &qr[h][p * VEC]);
 
   float m[G], l[G], acc[G][E];
@@ -492,8 +530,10 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (lane == 0) {
 #pragma unroll
     for (int h = 0; h < G; ++h) {
-      wm[warp * G + h] = m[h];
-      wl[warp * G + h] = l[h];
+      if (h < g) {
+        wm[warp * g + h] = m[h];
+        wl[warp * g + h] = l[h];
+      }
     }
   }
   if (rg == 0) {
@@ -503,11 +543,12 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int p = 0; p < NP; ++p)
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
-          wacc[(warp * G + h) * D + (c + p * R) * VEC + e] =
-              acc[h][p * VEC + e];
+          if (h < g && live(p))
+            wacc[(warp * g + h) * D + (c + p * R) * VEC + e] =
+                acc[h][p * VEC + e];
   }
   __syncthreads();
-  finish<float, D>(wm, wl, wacc, G, out, (size_t)bi * hq + (size_t)hi * G);
+  finish<float, D>(wm, wl, wacc, g, out, (size_t)bi * hq + (size_t)hi * g);
 }
 
 // Launch `kern` on grid (n_split, hkv, b) in clusters of (n_split, 1, 1).
@@ -551,7 +592,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
               int skv, int hq, int hkv, int kv_len, int chunk, int n_split,
               float scale, cudaStream_t stream) {
   const int g = hq / hkv;
-  const size_t ring = sizeof(bf16) * (size_t)kStages * 2 * TC_KEYS * D;
+  const size_t ring =
+      sizeof(bf16) * (size_t)kStages * 2 * TC_KEYS * tile_pitch<D>();
   const size_t part = partial_bytes(g, D);
   return launch_clusters<decode_tc_kernel<D>>(
       ring > part ? ring : part, n_split, hkv, b, stream,
@@ -560,41 +602,44 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
       kv_len, chunk, scale * kLog2e);
 }
 
-template <int G, int D>
+template <int G, int D, bool PAD>
 int launch_fp32(const void* q, const void* k, const void* v, void* out,
                 int b, int skv, int hq, int hkv, int kv_len, int chunk,
                 int n_split, float scale, cudaStream_t stream) {
+  const int g = hq / hkv;
   const size_t ring = (size_t)kStages * 4 * 2 * kThreads * 16;
-  const size_t part = partial_bytes(G, D);
-  return launch_clusters<decode_kernel<G, D>>(
+  const size_t part = partial_bytes(g, D);
+  return launch_clusters<decode_kernel<G, D, PAD>>(
       ring > part ? ring : part, n_split, hkv, b, stream,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), skv, hq, hkv,
-      kv_len, chunk, scale * kLog2e);
+      g, kv_len, chunk, scale * kLog2e);
 }
 
+// the fp32 kernel's groups: exact for 1-4, 8, 12 and 16 (every config's
+// g), the others on the next one up, padded
 template <int D>
 int launch_fp32_g(int g, const void* q, const void* k, const void* v,
                   void* out, int b, int skv, int hq, int hkv, int kv_len,
                   int chunk, int n_split, float scale, cudaStream_t s) {
-  switch (g) {
-#define DECODE_G(GG)                                                        \
-  case GG:                                                                 \
-    return launch_fp32<GG, D>(q, k, v, out, b, skv, hq, hkv, kv_len,       \
-                              chunk, n_split, scale, s);
-    DECODE_G(1) DECODE_G(2) DECODE_G(4) DECODE_G(8) DECODE_G(16)
+#define DECODE_G(GG, PAD)                                                   \
+  if (PAD ? g < GG : g == GG)                                              \
+    return launch_fp32<GG, D, PAD>(q, k, v, out, b, skv, hq, hkv, kv_len,  \
+                                   chunk, n_split, scale, s);
+  DECODE_G(1, false) DECODE_G(2, false) DECODE_G(3, false)
+  DECODE_G(4, false) DECODE_G(8, false) DECODE_G(12, false)
+  DECODE_G(16, false) DECODE_G(8, true) DECODE_G(12, true)
+  DECODE_G(16, true)
 #undef DECODE_G
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The wrapper has checked: d in {32, 64, 128, 256}, hq / hkv in
-// {1, 2, 4, 8, 16} (others return cudaErrorInvalidValue), 0 <= kv_len <=
+// The wrapper has checked: d in {32, 64, 80, 128, 256}, hq / hkv in
+// 1..16 (others return cudaErrorInvalidValue), 0 <= kv_len <=
 // skv, 16-byte aligned q/k/v, and 1 <= n_split <= 16 splits of `chunk`
 // keys that cover kv_len, none of them empty unless kv_len is 0.
 int decode_attention_launch(const void* q, const void* k, const void* v,
@@ -615,7 +660,7 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   case DD:                                         \
     return is_bf16 ? launch_tc<DD>(DECODE_ARGS)    \
                    : launch_fp32_g<DD>(g, DECODE_ARGS);
-    DECODE_D(32) DECODE_D(64) DECODE_D(128) DECODE_D(256)
+    DECODE_D(32) DECODE_D(64) DECODE_D(80) DECODE_D(128) DECODE_D(256)
 #undef DECODE_D
 #undef DECODE_ARGS
     default:

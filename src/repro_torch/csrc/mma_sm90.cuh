@@ -36,6 +36,12 @@ __device__ __forceinline__ void ldsm_x4(const void* p, uint32_t (&r)[4]) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
 }
+__device__ __forceinline__ void ldsm_x2(const void* p, uint32_t (&r)[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
 __device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t (&r)[4]) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
@@ -57,16 +63,33 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// Row pitch, in elements, of a [rows][D] bf16 tile in shared memory. Where
+// a row is 8 or more 16-byte chunks and their count a power of two (D 64,
+// 128, 256), the pitch is D and the chunks are XOR-swizzled (swz). Other
+// head sizes (D 80: 10 chunks, which an XOR by row % 8 would send off the
+// row) take an odd number of chunks a row, D / 8 or one more: 8 rows at one
+// logical chunk then fall on 8 different 16-byte bank groups with no
+// swizzle (80 -> 88 elements, 176 bytes, 10% more shared memory).
+template <int D>
+__host__ __device__ constexpr int tile_pitch() {
+  static_assert(D % 16 == 0, "head size");
+  constexpr int ch = D / 8;
+  if constexpr (D == 32 || (ch >= 8 && (ch & (ch - 1)) == 0)) return D;
+  else return ch % 2 ? D : D + 8;
+}
+
 // Element offset of 16-byte chunk `ch` of row `row` in a [rows][D] bf16
-// tile, the chunks XOR-swizzled so that the 8 rows an ldmatrix reads at
-// one logical chunk fall on 8 different 16-byte bank groups.
+// tile of pitch tile_pitch<D>(), laid out so that the 8 rows an ldmatrix
+// reads at one logical chunk fall on 8 different 16-byte bank groups.
 template <int D>
 __device__ __forceinline__ int swz(int row, int ch) {
-  static_assert(D == 32 || D % 64 == 0, "head size");
+  constexpr int P = tile_pitch<D>();
   if constexpr (D == 32)  // 4 chunks a row, two rows a 128-byte line
     return row * D + ((ch ^ ((row >> 1) & 3)) << 3);
-  else
+  else if constexpr (P == D && D % 64 == 0)
     return row * D + ((ch ^ (row & 7)) << 3);
+  else  // an odd number of chunks a row: no swizzle needed
+    return row * P + (ch << 3);
 }
 
 }  // namespace sm90

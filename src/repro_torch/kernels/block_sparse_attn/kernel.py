@@ -7,7 +7,10 @@ launches it on CUDA tensors; each launch adds one to ``LAUNCHES``. The
 source holds one kernel for each dtype, and the launch dispatches on it:
 bf16 runs on the tensor cores (``mma.sync``, 64 or 128 query rows a
 CTA), fp32 on the CUDA cores, whose fp32 products the fp32 tolerance
-needs. Neither stands in for the other.
+needs. Neither stands in for the other. ``supported`` states, without a
+card, which head shapes the kernels take: head sizes 64, 80, 128 and 256
+(every attention-bearing config of ``repro_torch.configs``) and any
+group; the reference takes any head size.
 ``block_sparse_attention_plain`` computes what the Pallas kernel computes
 with torch ops: per (head, q-block) the online softmax over the listed kv
 blocks in list order, scores in fp32, p rounded to v's dtype before the
@@ -25,7 +28,7 @@ from repro_torch.kernels import _build
 LAUNCHES = {"block_sparse_attention": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 80, 128, 256)
 _TILE = 64           # kv rows per sub-tile; query rows per CTA at least
 
 
@@ -125,6 +128,14 @@ def _lib():
     return _LIB
 
 
+def supported(hq: int, hkv: int, d: int, dtype) -> bool:
+    """Whether the kernels take hq query heads over hkv kv heads of head
+    size d in ``dtype``: d in ``_HEAD_DIMS``, any group hq / hkv, fp32 or
+    bf16. Needs no card."""
+    return (hkv >= 1 and hq >= hkv and hq % hkv == 0 and d in _HEAD_DIMS
+            and dtype in _DTYPES)
+
+
 def _check(q, k, v, block_idx, block_cnt, q_block, kv_block, kv_group):
     if q.device.type != "cuda":
         raise ValueError(f"kernel needs CUDA tensors, got {q.device}")
@@ -135,15 +146,16 @@ def _check(q, k, v, block_idx, block_cnt, q_block, kv_block, kv_group):
     if dk != d or kv_group < 1 or bh != bh_kv * kv_group:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
                          f"not match with kv_group {kv_group}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head size {d} not in {_HEAD_DIMS}")
+    if not supported(bh, bh_kv, d, q.dtype):
+        raise ValueError(f"head size {d} in {q.dtype}: the kernels take "
+                         f"head sizes {_HEAD_DIMS} in {_DTYPES}")
     if q_block % _TILE or kv_block % _TILE or q_block <= 0 or kv_block <= 0:
         raise ValueError(f"q_block {q_block} and kv_block {kv_block} must "
                          f"be positive multiples of {_TILE}")
     if sq % q_block or skv % kv_block:
         raise ValueError(f"sq {sq} must be a multiple of q_block {q_block} "
                          f"and skv {skv} of kv_block {kv_block}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one dtype of {_DTYPES}")
     n_qb = sq // q_block
     if (block_idx.dtype != torch.int32 or block_cnt.dtype != torch.int32
@@ -163,7 +175,9 @@ def _check(q, k, v, block_idx, block_cnt, q_block, kv_block, kv_group):
 
 def _cta_rows(q_block: int, dtype) -> int:
     """Query rows a CTA takes: the tensor-core kernel's 8 warps of 16 rows
-    where q_block allows, else 4 warps; the fp32 kernel always 64."""
+    where q_block allows, else 4 warps (at every head size: at d = 256 a
+    CTA of 128 rows holds 192 KB of shared memory, one CTA an SM); the
+    fp32 kernel always 64."""
     return 128 if dtype == torch.bfloat16 and q_block % 128 == 0 else _TILE
 
 

@@ -13,7 +13,10 @@ per kv block of ``kv_block`` keys, the block's max, p rounded to v's
 dtype before the PV product, and the blocks' fp32 partials combined at
 the end. The Pallas kernel carries one running softmax over the blocks
 instead; the two agree to rounding. The CPU path takes the plain version
-(``ops.py``); the card never does.
+(``ops.py``); the card never does. ``supported`` states, without a card,
+which head shapes the kernel takes: head sizes 32, 64, 80, 128 and 256
+and 1 to 16 query heads a kv head, which cover every attention-bearing
+config of ``repro_torch.configs``; the reference takes any.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ from repro_torch.kernels import _build
 LAUNCHES = {"decode_attention": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (32, 64, 128, 256)
-_GROUPS = (1, 2, 4, 8, 16)    # query heads per kv head (a template)
+_HEAD_DIMS = (32, 64, 80, 128, 256)
+_MAX_GROUP = 16        # query heads per kv head, 1 .. this
 _SPLIT_ROWS = 64       # a split holds a multiple of this many key rows
 _MIN_SPLIT = 256       # keys a split at least, to amortise its combine
 _MAX_SPLITS = 16       # a cluster's CTAs (csrc/decode_attn.cu kMaxCluster)
@@ -123,6 +126,14 @@ def _lib():
     return _LIB
 
 
+def supported(hq: int, hkv: int, d: int, dtype) -> bool:
+    """Whether the kernel takes hq query heads over hkv kv heads of head
+    size d in ``dtype``: d in ``_HEAD_DIMS``, hq a multiple of hkv by 1 to
+    ``_MAX_GROUP``, fp32 or bf16. Needs no card."""
+    return (hkv >= 1 and hq % hkv == 0 and 1 <= hq // hkv <= _MAX_GROUP
+            and d in _HEAD_DIMS and dtype in _DTYPES)
+
+
 def _check(q, k, v, kv_len):
     if q.device.type != "cuda":
         raise ValueError(f"kernel needs CUDA tensors, got {q.device}")
@@ -130,15 +141,15 @@ def _check(q, k, v, kv_len):
         raise ValueError("q must be (b, hq, d) and k, v (b, skv, hkv, d)")
     b, hq, d = q.shape
     kb, skv, hkv, dk = k.shape
-    if kb != b or dk != d or hkv == 0 or hq % hkv:
+    if kb != b or dk != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
                          "not match")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head size {d} not in {_HEAD_DIMS}")
-    if hq // hkv not in _GROUPS:
-        raise ValueError(f"{hq // hkv} query heads per kv head, not one of "
-                         f"{_GROUPS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if not supported(hq, hkv, d, q.dtype):
+        raise ValueError(f"{hq} query heads over {hkv} kv heads of size {d} "
+                         f"in {q.dtype}: the kernel takes head sizes "
+                         f"{_HEAD_DIMS}, hq a multiple of hkv by 1 to "
+                         f"{_MAX_GROUP}, in {_DTYPES}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one dtype of {_DTYPES}")
     for t in (q, k, v):
         if t.device != q.device or not t.is_contiguous():

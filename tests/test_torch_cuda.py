@@ -263,7 +263,13 @@ def _randn(gen, shape, dtype, device):
     (4, 1, 512, 64, True, 0.9), (2, 1, 1024, 128, True, 0.9),
     (2, 2, 256, 64, True, 0.95), (2, 4, 384, 128, True, 0.95),
     (1, 8, 256, 64, True, 0.95), (2, 1, 512, 64, False, 0.85),
-    (1, 4, 384, 128, False, 0.98)])
+    (1, 4, 384, 128, False, 0.98),
+    # the head shapes of granite-moe-3b-a800m, starcoder2-3b, zamba2-2.7b
+    # and gemma-2b: (hq, hkv, d) (24, 8, 64), (24, 2, 128), (32, 32, 80),
+    # (8, 1, 256)
+    (8, 3, 256, 64, True, 0.95), (2, 12, 256, 128, True, 0.95),
+    (32, 1, 512, 80, True, 0.9), (1, 8, 512, 256, True, 0.9),
+    (4, 1, 384, 80, False, 0.9), (1, 8, 256, 256, False, 0.98)])
 def test_block_sparse_kernel_matches_plain(cuda, bh_kv, g, s, d, causal,
                                            mass, dtype):
     gen = torch.Generator(device=cuda).manual_seed(s + d + g)
@@ -288,7 +294,10 @@ def test_block_sparse_kernel_matches_plain(cuda, bh_kv, g, s, d, causal,
     (2, 8, 2, 512, 64, 400, 256), (1, 4, 4, 1024, 128, 1024, 256),
     (3, 16, 2, 768, 128, 700, 128), (2, 8, 1, 512, 256, 333, 512),
     (2, 8, 2, 512, 64, 0, 256), (1, 32, 8, 2048, 128, 1999, 256),
-    (1, 32, 8, 96, 128, 61, 256), (2, 8, 8, 300, 32, 1, 64)])
+    (1, 32, 8, 96, 128, 61, 256), (2, 8, 8, 300, 32, 1, 64),
+    # granite-moe-3b-a800m, starcoder2-3b, zamba2-2.7b, gemma-2b
+    (2, 24, 8, 512, 64, 333, 256), (1, 24, 2, 2048, 128, 1999, 256),
+    (1, 32, 32, 2048, 80, 2048, 256), (2, 8, 1, 640, 256, 577, 128)])
 def test_decode_kernel_matches_plain(cuda, b, hq, hkv, skv, d, kv_len, blk,
                                      dtype):
     gen = torch.Generator(device=cuda).manual_seed(skv + kv_len)
@@ -326,7 +335,11 @@ def _lists_with_holes(gen, bh, n_qb, n_kb, device):
 @pytest.mark.parametrize("bh_kv,g,s,d,q_block,kv_block", [
     (2, 1, 512, 64, 64, 64), (1, 4, 512, 128, 64, 256),
     (1, 8, 512, 64, 256, 64), (2, 4, 512, 128, 256, 256),
-    (1, 1, 768, 128, 128, 64), (1, 8, 256, 128, 128, 128)])
+    (1, 1, 768, 128, 128, 64), (1, 8, 256, 128, 128, 128),
+    # d 80 (rows padded to 11 chunks) and d 256 (Q in shared memory, two
+    # stages), at 64 and 128 query rows a CTA
+    (2, 1, 512, 80, 64, 64), (1, 4, 512, 80, 256, 128),
+    (1, 2, 512, 256, 64, 256), (1, 8, 512, 256, 128, 64)])
 def test_block_sparse_bf16_tensor_cores_at_tile_edges(cuda, bh_kv, g, s, d,
                                                       q_block, kv_block,
                                                       causal):
@@ -417,9 +430,40 @@ def test_attention_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     flat = _randn(gen, (dk.numel() + 1,), torch.float32, cuda)
     with pytest.raises(ValueError):        # k not 16-byte aligned
         DK.decode_attention(dq, flat[1:].view(dk.shape), dk, 10)
-    with pytest.raises(ValueError):        # 3 query heads per kv head
-        DK.decode_attention(_randn(gen, (1, 6, 64), torch.float32, cuda),
+    with pytest.raises(ValueError):        # hq not a multiple of hkv
+        DK.decode_attention(_randn(gen, (1, 5, 64), torch.float32, cuda),
                             dk, dk, 10)
+    with pytest.raises(ValueError):        # 17 query heads per kv head
+        DK.decode_attention(_randn(gen, (1, 34, 64), torch.float32, cuda),
+                            dk, dk, 10)
+    q48 = _randn(gen, (1, 8, 48), torch.float32, cuda)
+    k48 = _randn(gen, (1, 100, 2, 48), torch.float32, cuda)
+    with pytest.raises(ValueError):        # head size 48
+        DK.decode_attention(q48, k48, k48, 10)
+    b48 = _randn(gen, (2, 256, 48), torch.float32, cuda)
+    with pytest.raises(ValueError):        # head size 48
+        BK.block_sparse_attention(b48, b48, b48, idx, cnt)
+    with pytest.raises(ValueError):        # 3 q rows over 2 kv rows
+        BK.block_sparse_attention(_randn(gen, (3, 256, 64), torch.float32,
+                                         cuda), q, q, idx, cnt, kv_group=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", range(1, 17))
+def test_decode_every_group(cuda, g, dtype):
+    """g 1 to 16 query heads a kv head at d 80: the fp32 kernel's groups
+    between its templates (5-7, 9-11, 13-15) run on the next one up with
+    the extra rows masked; one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    q = _randn(gen, (2, 2 * g, 80), dtype, cuda)
+    k = _randn(gen, (2, 700, 2, 80), dtype, cuda)
+    v = _randn(gen, (2, 700, 2, 80), dtype, cuda)
+    before = DK.LAUNCHES["decode_attention"]
+    out = DK.decode_attention(q, k, v, 650)
+    assert DK.LAUNCHES["decode_attention"] == before + 1
+    plain = DK.decode_attention_plain(q, k, v, 650)
+    torch.cuda.synchronize()
+    assert _close(out, plain, dtype)
 
 
 # ---------------------------------------------------------------------------
