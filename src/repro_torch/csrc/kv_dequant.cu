@@ -18,8 +18,8 @@
 //   parameters and zeros are concatenated, as whole groups, into flat
 //   buffers; an int64 table row per entry gives its first group, its value
 //   count, the address its values go to (a chunk's slot of the K or V
-//   cache) and its bit-width. Every value is written once, at its place;
-//   group padding past an entry's count is never written.
+//   cache), its bit-width and its first code. Every value is written once,
+//   at its place; group padding past an entry's count is never written.
 // - The grid is sized to the card: the SM count times the CTAs a SM holds.
 //   Each CTA walks one contiguous range of 512-code tiles, a warp two tiles
 //   at a time; a lane issues its two 16-byte code loads for the next two
@@ -30,9 +30,19 @@
 //   512 contiguous bytes. Code loads are streaming (evict-first), since
 //   each code is read once.
 // - A lane finds the entry of its values by binary search over the table's
-//   first groups and keeps it in registers while it stays inside it (an
+//   first codes and keeps it in registers while it stays inside it (an
 //   entry is a million values on the main path).
-//
+// - Any group size: a value's group is (its index in the entry) / group,
+//   so a 16-byte vector may span two or more groups (bf16 at group 100,
+//   any group under 8). A vector inside one group takes one (step, zero)
+//   pair, as at group 64 or 8; one that spans groups reads a pair a value.
+//   Each entry's codes start at their own offset (the table's first
+//   code): a batch that ops.stage lays out starts every entry on a 16-byte
+//   boundary, so its vectors never straddle two entries. A vector that
+//   does (the row-matrix forms at a width that is not a multiple of a
+//   vector's 4 fp32 or 8 bf16 values), or whose destination is not
+//   16-byte aligned, is written value by value.
+
 // Rounding: the result is fma(code, step, zero) rounded once, as the
 // Pallas kernels give it; the mixed form's step is the IEEE fp32 quotient
 // span / (2^bits - 1). The explicit intrinsics keep -fmad and -prec-div
@@ -54,36 +64,48 @@ constexpr int kTile = 512;     // codes a warp loads at once, 16 a lane
 constexpr int kUnroll = 2;     // tiles a warp loads before it stores any
 
 // Columns of the entry table (int64).
-constexpr int kFirstGroup = 0, kNVals = 1, kDst = 2, kBits = 3, kCols = 4;
+constexpr int kFirstGroup = 0, kNVals = 1, kDst = 2, kBits = 3,
+              kFirstCode = 4, kCols = 5;
 
 struct Entry {
   int64_t v0 = 0, v1 = 0;  // flat code range [v0, v1) up to the next entry
+                           // (v0: its first code)
   int64_t g0 = 0;          // first group
   int64_t n_vals = 0;      // values it writes
   char* dst = nullptr;
   float q = 1.f;           // 2^bits - 1 (mixed form)
+  int64_t vend = -1;       // the last code a 16-byte vector of the entry
+                           // may start at: v1 - a vector's values where v0
+                           // is a multiple of them and dst 16-byte aligned
+                           // (and v0 <= v when found), else none
 };
 
-// The last entry whose first code is at or before flat code `v`.
+// The last entry whose first code is at or before flat code `v` (the
+// first entry where none is).
+template <typename Out>
 __device__ __forceinline__ void find_entry(const int64_t* __restrict__ table,
-                                           int n_entries, int64_t n_groups,
-                                           int group, int64_t v, Entry& e) {
+                                           int n_entries, int64_t n_codes,
+                                           int64_t v, Entry& e) {
   int lo = 0, hi = n_entries - 1;
   while (lo < hi) {
     int mid = (lo + hi + 1) >> 1;
-    if (__ldg(table + (int64_t)mid * kCols + kFirstGroup) * group <= v)
+    if (__ldg(table + (int64_t)mid * kCols + kFirstCode) <= v)
       lo = mid;
     else
       hi = mid - 1;
   }
   const int64_t* row = table + (int64_t)lo * kCols;
   e.g0 = __ldg(row + kFirstGroup);
-  e.v0 = e.g0 * group;
-  e.v1 = (lo + 1 < n_entries ? __ldg(row + kCols + kFirstGroup) : n_groups)
-         * group;
+  e.v0 = __ldg(row + kFirstCode);
+  e.v1 = lo + 1 < n_entries ? __ldg(row + kCols + kFirstCode) : n_codes;
   e.n_vals = __ldg(row + kNVals);
   e.dst = reinterpret_cast<char*>(__ldg(row + kDst));
   e.q = (float)((1 << (int)__ldg(row + kBits)) - 1);
+  constexpr int kVals = 16 / sizeof(Out);
+  e.vend = e.v0 <= v && e.v0 % kVals == 0 &&
+                   (reinterpret_cast<uintptr_t>(e.dst) & 15) == 0
+               ? e.v1 - kVals
+               : INT64_MIN;
 }
 
 __device__ __forceinline__ uint4 load_stream(const uint8_t* p) {
@@ -130,22 +152,40 @@ __device__ __forceinline__ void put(__nv_bfloat16* out, const float* x,
   }
 }
 
-// codes (n_groups * group,) u8; params/zeros (n_groups,) f32 (params: the
-// steps, or the spans when MIXED); table (n_entries, kCols) int64, sorted
-// by first group.
-template <typename Out, bool MIXED>
+__device__ __forceinline__ void put1(float* out, float x) { *out = x; }
+__device__ __forceinline__ void put1(__nv_bfloat16* out, float x) {
+  *out = __float2bfloat16_rn(x);
+}
+
+// The step and zero of group gi.
+template <bool MIXED>
+__device__ __forceinline__ void group_params(const float* __restrict__ params,
+                                             const float* __restrict__ zeros,
+                                             int64_t gi, float q, float& step,
+                                             float& zero) {
+  step = __ldg(params + gi);
+  if (MIXED) step = __fdiv_rn(step, q);
+  zero = __ldg(zeros + gi);
+}
+
+// codes (n_codes,) u8; params/zeros (n_groups,) f32 (params: the steps, or
+// the spans when MIXED); table (n_entries, kCols) int64, sorted by first
+// group and by first code. An entry's values are its n_vals codes from its
+// first code, in groups of `group` from its first group. WHOLE: group is a
+// multiple of a vector's values, so a vector that starts at a multiple of
+// them in an entry spans no group boundary.
+template <typename Out, bool MIXED, bool WHOLE>
 __global__ void __launch_bounds__(kThreads, 4)
 dequant_kernel(const uint8_t* __restrict__ codes,
                const float* __restrict__ params,
                const float* __restrict__ zeros,
                const int64_t* __restrict__ table, int n_entries,
-               int64_t n_groups, int group) {
+               int64_t n_codes, int group) {
   constexpr int kVals = 16 / sizeof(Out);        // values a 16-byte store
   constexpr int kStores = kTile / (32 * kVals);  // stores a lane a tile
   __shared__ __align__(16) uint8_t stage[kWarps][kUnroll][kTile];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t n_codes = n_groups * group;
   const int64_t n_tiles = (n_codes + kTile - 1) / kTile;
   const int64_t begin = n_tiles * blockIdx.x / gridDim.x;
   const int64_t end = n_tiles * (blockIdx.x + 1) / gridDim.x;
@@ -178,24 +218,58 @@ dequant_kernel(const uint8_t* __restrict__ codes,
       const int64_t v = (t0 + u) * kTile + off;
       if (v >= n_codes) continue;
       if (v < e.v0 || v >= e.v1)
-        find_entry(table, n_entries, n_groups, group, v, e);
+        find_entry<Out>(table, n_entries, n_codes, v, e);
       const int64_t local = v - e.v0;
-      if (local >= e.n_vals) continue;             // group padding
-      const int64_t gi =
-          e.g0 + (int64_t)((uint32_t)local / (uint32_t)group);
-      float step = __ldg(params + gi);
-      if (MIXED) step = __fdiv_rn(step, e.q);
-      const float zero = __ldg(zeros + gi);
-      uint32_t w[kVals / 4];
+      const uint8_t* cs = &stage[warp][u][off];
+      if (v <= e.vend) {
+        if (local >= e.n_vals) continue;           // group padding
+        uint32_t w[kVals / 4];
 #pragma unroll
-      for (int i = 0; i < kVals / 4; ++i)
-        w[i] = reinterpret_cast<const uint32_t*>(&stage[warp][u][off])[i];
-      float x[kVals];
+        for (int i = 0; i < kVals / 4; ++i)
+          w[i] = reinterpret_cast<const uint32_t*>(cs)[i];
+        const uint32_t gq = (uint32_t)local / (uint32_t)group;
+        float x[kVals];
+        if (WHOLE || (uint32_t)local - gq * (uint32_t)group + kVals <=
+                         (uint32_t)group) {        // one group: one pair
+          float step, zero;
+          group_params<MIXED>(params, zeros, e.g0 + gq, e.q, step, zero);
 #pragma unroll
-      for (int i = 0; i < kVals; ++i)
-        x[i] = __fmaf_rn((float)((w[i / 4] >> (8 * (i % 4))) & 0xffu), step,
-                         zero);
-      put(reinterpret_cast<Out*>(e.dst) + local, x, e.n_vals - local);
+          for (int i = 0; i < kVals; ++i)
+            x[i] = __fmaf_rn((float)((w[i / 4] >> (8 * (i % 4))) & 0xffu),
+                             step, zero);
+        } else {                                   // a pair a value
+#pragma unroll
+          for (int i = 0; i < kVals; ++i) {
+            x[i] = 0.f;
+            if (local + i >= e.n_vals) continue;   // past the last group
+            float step, zero;
+            group_params<MIXED>(
+                params, zeros,
+                e.g0 + ((uint32_t)local + i) / (uint32_t)group, e.q, step,
+                zero);
+            x[i] = __fmaf_rn((float)((w[i / 4] >> (8 * (i % 4))) & 0xffu),
+                             step, zero);
+          }
+        }
+        put(reinterpret_cast<Out*>(e.dst) + local, x, e.n_vals - local);
+      } else {
+        // value by value: the vector crosses an entry's bounds, or the
+        // entry does not start on a vector or at a 16-byte aligned
+        // destination
+        for (int i = 0; i < kVals && v + i < n_codes; ++i) {
+          const int64_t vi = v + i;
+          if (vi < e.v0 || vi >= e.v1)
+            find_entry<Out>(table, n_entries, n_codes, vi, e);
+          const int64_t li = vi - e.v0;
+          if (li < 0 || li >= e.n_vals) continue;
+          float step, zero;
+          group_params<MIXED>(params, zeros,
+                              e.g0 + (int64_t)((uint32_t)li / (uint32_t)group),
+                              e.q, step, zero);
+          put1(reinterpret_cast<Out*>(e.dst) + li,
+               __fmaf_rn((float)cs[i], step, zero));
+        }
+      }
     }
     __syncwarp();
   }
@@ -203,14 +277,16 @@ dequant_kernel(const uint8_t* __restrict__ codes,
 
 template <typename Out, bool MIXED>
 int grid_size(int64_t n_codes, int* grid) {
-  static int per_sm = 0;     // CTAs a SM holds: fixed for a built kernel
+  // CTAs a SM holds: fixed for a built kernel (the whole-group instance's;
+  // both instances' launch bounds ask for 4)
+  static int per_sm = 0;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess && per_sm == 0)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, dequant_kernel<Out, MIXED>, kThreads, 0);
+        &per_sm, dequant_kernel<Out, MIXED, true>, kThreads, 0);
   if (err != cudaSuccess) return (int)err;
   const int64_t tiles = (n_codes + kTile - 1) / kTile;
   const int64_t want = (tiles + kWarps * kUnroll - 1) / (kWarps * kUnroll);
@@ -221,16 +297,18 @@ int grid_size(int64_t n_codes, int* grid) {
 
 template <typename Out, bool MIXED>
 int launch(const void* codes, const void* params, const void* zeros,
-           const void* table, int n_entries, int64_t n_groups, int group,
+           const void* table, int n_entries, int64_t n_codes, int group,
            cudaStream_t s) {
   int grid = 0;
-  int err = grid_size<Out, MIXED>(n_groups * group, &grid);
+  int err = grid_size<Out, MIXED>(n_codes, &grid);
   if (err) return err;
   if (grid == 0 || n_entries == 0) return (int)cudaGetLastError();
-  dequant_kernel<Out, MIXED><<<grid, kThreads, 0, s>>>(
+  auto kern = group % (16 / sizeof(Out)) ? dequant_kernel<Out, MIXED, false>
+                                         : dequant_kernel<Out, MIXED, true>;
+  kern<<<grid, kThreads, 0, s>>>(
       static_cast<const uint8_t*>(codes), static_cast<const float*>(params),
       static_cast<const float*>(zeros), static_cast<const int64_t*>(table),
-      n_entries, n_groups, group);
+      n_entries, n_codes, group);
   return (int)cudaGetLastError();
 }
 
@@ -243,19 +321,19 @@ extern "C" {
 // destination is bf16, else fp32.
 int kv_dequant_launch(const void* codes, const void* params,
                       const void* zeros, const void* table, int n_entries,
-                      long long n_groups, int group, int mixed, int out_bf16,
+                      long long n_codes, int group, int mixed, int out_bf16,
                       void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (mixed)
     return out_bf16 ? launch<__nv_bfloat16, true>(codes, params, zeros, table,
-                                                  n_entries, n_groups, group,
+                                                  n_entries, n_codes, group,
                                                   s)
                     : launch<float, true>(codes, params, zeros, table,
-                                          n_entries, n_groups, group, s);
+                                          n_entries, n_codes, group, s);
   return out_bf16 ? launch<__nv_bfloat16, false>(codes, params, zeros, table,
-                                                 n_entries, n_groups, group, s)
+                                                 n_entries, n_codes, group, s)
                   : launch<float, false>(codes, params, zeros, table,
-                                         n_entries, n_groups, group, s);
+                                         n_entries, n_codes, group, s);
 }
 
 // The grid kv_dequant_launch takes for n_codes codes, or -(CUDA error).

@@ -5,12 +5,15 @@ The kernel (``csrc/block_sparse_attn.cu``) replaces the Pallas kernel of
 ``repro/kernels/block_sparse_attn/kernel.py``. ``block_sparse_attention``
 launches it on CUDA tensors; each launch adds one to ``LAUNCHES``. The
 source holds one kernel for each dtype, and the launch dispatches on it:
-bf16 runs on the tensor cores (``mma.sync``, 64 or 128 query rows a
+bf16 runs on the tensor cores (``mma.sync``, 16 to 128 query rows a
 CTA), fp32 on the CUDA cores, whose fp32 products the fp32 tolerance
 needs. Neither stands in for the other. ``supported`` states, without a
 card, which head shapes the kernels take: head sizes 64, 80, 128 and 256
 (every attention-bearing config of ``repro_torch.configs``) and any
-group; the reference takes any head size.
+group; the reference takes any head size. ``supported_blocks`` states
+which block sizes they take: any q_block and kv_block that are positive
+multiples of 16 (every block size of the repo's configs, CLIs and
+tests); the reference takes any.
 ``block_sparse_attention_plain`` computes what the Pallas kernel computes
 with torch ops: per (head, q-block) the online softmax over the listed kv
 blocks in list order, scores in fp32, p rounded to v's dtype before the
@@ -29,7 +32,7 @@ LAUNCHES = {"block_sparse_attention": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 80, 128, 256)
-_TILE = 64           # kv rows per sub-tile; query rows per CTA at least
+_SEG = 16            # block sizes are multiples of it (mma.sync's m16)
 
 
 def reset_launches() -> None:
@@ -136,6 +139,12 @@ def supported(hq: int, hkv: int, d: int, dtype) -> bool:
             and dtype in _DTYPES)
 
 
+def supported_blocks(q_block: int, kv_block: int) -> bool:
+    """Whether the kernels take q-blocks of `q_block` rows and kv blocks of
+    `kv_block` rows: positive multiples of 16. Needs no card."""
+    return all(b > 0 and b % _SEG == 0 for b in (q_block, kv_block))
+
+
 def _check(q, k, v, block_idx, block_cnt, q_block, kv_block, kv_group):
     if q.device.type != "cuda":
         raise ValueError(f"kernel needs CUDA tensors, got {q.device}")
@@ -149,9 +158,9 @@ def _check(q, k, v, block_idx, block_cnt, q_block, kv_block, kv_group):
     if not supported(bh, bh_kv, d, q.dtype):
         raise ValueError(f"head size {d} in {q.dtype}: the kernels take "
                          f"head sizes {_HEAD_DIMS} in {_DTYPES}")
-    if q_block % _TILE or kv_block % _TILE or q_block <= 0 or kv_block <= 0:
+    if not supported_blocks(q_block, kv_block):
         raise ValueError(f"q_block {q_block} and kv_block {kv_block} must "
-                         f"be positive multiples of {_TILE}")
+                         f"be positive multiples of {_SEG}")
     if sq % q_block or skv % kv_block:
         raise ValueError(f"sq {sq} must be a multiple of q_block {q_block} "
                          f"and skv {skv} of kv_block {kv_block}")
@@ -174,11 +183,12 @@ def _check(q, k, v, block_idx, block_cnt, q_block, kv_block, kv_group):
 
 
 def _cta_rows(q_block: int, dtype) -> int:
-    """Query rows a CTA takes: the tensor-core kernel's 8 warps of 16 rows
-    where q_block allows, else 4 warps (at every head size: at d = 256 a
-    CTA of 128 rows holds 192 KB of shared memory, one CTA an SM); the
-    fp32 kernel always 64."""
-    return 128 if dtype == torch.bfloat16 and q_block % 128 == 0 else _TILE
+    """Query rows a CTA takes, all of one q-block: the most of 128 (the
+    tensor-core kernel's 8 warps of 16 rows; at d = 256 a CTA of 128 rows
+    holds 192 KB of shared memory, one CTA an SM), 64, 32 and 16 that
+    divides q_block; the fp32 kernel at most 64."""
+    top = 128 if dtype == torch.bfloat16 else 64
+    return next(r for r in (128, 64, 32, 16) if r <= top and q_block % r == 0)
 
 
 def block_sparse_attention(q, k, v, block_idx, block_cnt, *,

@@ -6,7 +6,7 @@ The kernel (``csrc/kv_dequant.cu``) replaces both Pallas kernels of
 codes, per-group parameters and zeros of many chunk tensors (entries),
 concatenated as whole groups into flat buffers, and an entry table with a
 row per entry (first group, value count, destination address,
-bit-width). It writes each entry's values straight to its
+bit-width, first code). It writes each entry's values straight to its
 destination, such as a chunk's slot of the KV cache. ``dequant_batch``
 launches it on CUDA tensors; ``kv_dequant`` and ``kv_dequant_mixed`` keep
 the Pallas kernels' row-matrix contracts and launch the same kernel (one
@@ -34,8 +34,8 @@ from repro_torch.kernels import _build
 LAUNCHES = {"kv_dequant": 0, "kv_dequant_mixed": 0}
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
-_VEC = 16            # codes a 16-byte load; a group is a multiple of it
 _MAX_SPAN = 2 ** 31  # codes an entry spans at most (the kernel's offsets)
+_COLS = 5            # first group, value count, address, bits, first code
 
 
 def reset_launches() -> None:
@@ -43,16 +43,24 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def supported(group: int, width: int) -> bool:
+    """Whether the kernel takes rows of `width` codes in groups of `group`:
+    any group that divides the width, as the reference's quantizer and
+    Pallas kernels take. Needs no card."""
+    return group >= 1 and width >= 1 and width % group == 0
+
+
 @dataclasses.dataclass
 class Batch:
     """One launch's work, all on one device.
 
-    codes: (n_groups * group,) uint8; params: (n_groups,) float32, the
-    steps, or the spans when ``mixed``; zeros: (n_groups,) float32;
-    table: (E, 4) int64, a row per entry: its first group, its value
-    count, its destination's address and its bit-width, sorted by first
-    group (an entry's groups are the ceil(n_vals / group)
-    from its first; ``bits`` is read only when ``mixed``); dests: the E
+    codes: (n_codes,) uint8; params: (n_groups,) float32, the steps, or
+    the spans when ``mixed``; zeros: (n_groups,) float32; table: (E, 5)
+    int64, a row per entry: its first group, its value count, its
+    destination's address, its bit-width and its first code, sorted by
+    first group and first code (an entry's groups are the ceil(n_vals /
+    group) from its first group, and its codes as many whole groups from
+    its first code; ``bits`` is read only when ``mixed``); dests: the E
     contiguous tensors, all float32 or all bfloat16, whose first n_vals
     elements the entries fill (``dst`` is their address); rows: the table
     as the host built it, which the launcher checks without reading the
@@ -100,13 +108,13 @@ def dequant_batch_plain(b: Batch) -> None:
     """The kernel's work on a batch, entry by entry: reads the same flat
     buffers and the same table (its device copy) and writes the same
     destinations, whose addresses it checks against the table."""
-    for e, (first, n, dst, bits) in enumerate(b.table.tolist()):
+    for e, (first, n, dst, bits, c0) in enumerate(b.table.tolist()):
         out = b.dests[e]
         if out.data_ptr() != dst:
             raise ValueError(f"entry {e}: the table's address is not its "
                              "destination's")
         ng = -(-n // b.group)
-        c = b.codes[first * b.group:(first + ng) * b.group]
+        c = b.codes[c0:c0 + ng * b.group]
         c = c.to(torch.float32).view(ng, b.group)
         step = b.params[first:first + ng]
         if b.mixed:
@@ -152,7 +160,7 @@ def _launch(codes, params, zeros, table, n_entries, group, mixed,
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     err = _lib().kv_dequant_launch(
         codes.data_ptr(), params.data_ptr(), zeros.data_ptr(),
-        table.data_ptr(), n_entries, params.numel(), group, int(mixed),
+        table.data_ptr(), n_entries, codes.numel(), group, int(mixed),
         int(out_dtype == torch.bfloat16), stream)
     LAUNCHES[name] += 1
     if err:
@@ -163,12 +171,12 @@ def _check_batch(b: Batch):
     """Raise unless the kernel can take `b`; returns the output dtype."""
     if b.codes.device.type != "cuda":
         raise ValueError(f"kernel needs CUDA tensors, got {b.codes.device}")
-    if b.group <= 0 or b.group % _VEC:
-        raise ValueError(f"group {b.group} must be a positive multiple of "
-                         f"{_VEC}")
+    if b.group <= 0:
+        raise ValueError(f"group {b.group} must be positive")
     n_groups = b.params.numel()
+    if b.codes.dtype != torch.uint8 or b.codes.dim() != 1:
+        raise ValueError("codes must be a flat uint8 tensor")
     for name, t, dt, n in (
-            ("codes", b.codes, torch.uint8, n_groups * b.group),
             ("params", b.params, torch.float32, n_groups),
             ("zeros", b.zeros, torch.float32, n_groups)):
         if t.dtype != dt or t.numel() != n:
@@ -178,11 +186,12 @@ def _check_batch(b: Batch):
     if b.codes.data_ptr() % 16:
         raise ValueError("codes must be 16-byte aligned")
     n_entries = len(b.dests)
-    if (b.table.dtype != torch.int64 or tuple(b.table.shape) != (n_entries, 4)
+    if (b.table.dtype != torch.int64
+            or tuple(b.table.shape) != (n_entries, _COLS)
             or b.table.device != b.codes.device
             or not b.table.is_contiguous()
-            or b.rows.shape != (n_entries, 4)):
-        raise ValueError(f"the table must be ({n_entries}, 4) int64, "
+            or b.rows.shape != (n_entries, _COLS)):
+        raise ValueError(f"the table must be ({n_entries}, {_COLS}) int64, "
                          "contiguous on the codes' device")
     if n_entries >= 2 ** 31:
         raise ValueError("too many entries for one launch")
@@ -200,11 +209,14 @@ def _check_batch(b: Batch):
             raise ValueError(f"entry {e} does not fit its destination")
     if not n_entries:
         return out_dtype
-    first, n = b.rows[:, 0], b.rows[:, 1]
+    first, n, c0 = b.rows[:, 0], b.rows[:, 1], b.rows[:, 4]
     span = -(-n // b.group)
-    if ((n <= 0).any() or first[0] < 0 or (span * b.group >= _MAX_SPAN).any()
+    if ((n <= 0).any() or first[0] < 0 or c0[0] < 0
+            or (span * b.group >= _MAX_SPAN).any()
             or (first[1:] < first[:-1] + span[:-1]).any()
-            or first[-1] + span[-1] > n_groups):
+            or first[-1] + span[-1] > n_groups
+            or (c0[1:] < c0[:-1] + span[:-1] * b.group).any()
+            or c0[-1] + span[-1] * b.group > b.codes.numel()):
         raise ValueError("entries must hold values, stay inside the flat "
                          "buffers and follow each other without overlap")
     if b.mixed and not ((b.rows[:, 3] >= 1) & (b.rows[:, 3] <= 8)).all():
@@ -232,9 +244,9 @@ def _check_rows(codes, params, zeros, group, out_dtype, bits=None):
     if codes.dtype != torch.uint8 or codes.dim() != 2:
         raise ValueError("codes must be a 2-D uint8 tensor")
     n, width = codes.shape
-    if group <= 0 or group % _VEC or width % group:
-        raise ValueError(f"group {group} must divide width {width} and be "
-                         f"a multiple of {_VEC}")
+    if not supported(group, width):
+        raise ValueError(f"group {group} must be positive and divide width "
+                         f"{width}")
     if n * width >= _MAX_SPAN:
         raise ValueError("codes too large for one launch")
     if out_dtype not in _OUT_DTYPES:
@@ -254,14 +266,15 @@ def _check_rows(codes, params, zeros, group, out_dtype, bits=None):
 
 
 def _row_table(out, n_entries, vals, groups, bits=None):
-    """Entries of `vals` values and `groups` groups each, laid end to end
-    in `out`, built on the device (no copy from the host)."""
+    """Entries of `vals` values (and codes) and `groups` groups each, laid
+    end to end in the codes and in `out`, built on the device (no copy
+    from the host)."""
     r = torch.arange(n_entries, dtype=torch.int64, device=out.device)
     b = (bits.reshape(-1).to(torch.int64) if bits is not None
          else torch.zeros_like(r))
     return torch.stack([r * groups, torch.full_like(r, vals),
                         r * (vals * out.element_size()) + out.data_ptr(),
-                        b], 1)
+                        b, r * vals], 1)
 
 
 def kv_dequant(codes, scales, zeros, *, group: int,

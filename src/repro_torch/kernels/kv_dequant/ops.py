@@ -71,7 +71,9 @@ def stage(qts: list, dests: list, *, mixed: bool) -> K.Batch:
     """One batch whose entry e writes qts[e]'s values into dests[e] (a
     contiguous tensor on the device, at least that many elements). The
     uniform form carries the steps (``scales``); the mixed form the spans
-    and each entry's bit-width. Chunks without values are left out."""
+    and each entry's bit-width. Chunks without values are left out. An
+    entry's codes are whole groups, padded with zeros to a 16-byte
+    boundary, so that every entry starts on one whatever the group."""
     if len(qts) != len(dests) or not qts:
         raise ValueError("one destination per chunk, and at least one")
     group = qts[0].group
@@ -83,32 +85,34 @@ def stage(qts: list, dests: list, *, mixed: bool) -> K.Batch:
     n_vals = np.array([int(np.prod(q.shape)) for q in qts], np.int64)
     n_grp = -(-n_vals // group)
     first = np.cumsum(n_grp) - n_grp
-    n_groups = int(n_grp.sum())
-    o_par = _up16(n_groups * group)
+    n_cod = -(-n_grp * group // 16) * 16
+    c0 = np.cumsum(n_cod) - n_cod
+    n_groups, n_codes = int(n_grp.sum()), int(n_cod.sum())
+    o_par = _up16(n_codes)
     o_zero = o_par + _up16(4 * n_groups)
     o_tab = o_zero + _up16(4 * n_groups)
-    host = torch.empty(o_tab + 32 * len(qts), dtype=torch.uint8,
+    host = torch.empty(o_tab + 8 * K._COLS * len(qts), dtype=torch.uint8,
                        pin_memory=dev.type == "cuda")
     h = host.numpy()
-    codes = h[:n_groups * group]
+    codes = h[:n_codes]
     params = h[o_par:o_par + 4 * n_groups].view(np.float32)
     zeros = h[o_zero:o_zero + 4 * n_groups].view(np.float32)
-    rows = h[o_tab:].view(np.int64).reshape(-1, 4)
-    for q, a, g, n in zip(qts, first, n_grp, n_vals):
-        codes[a * group:a * group + n] = q.codes
-        codes[a * group + n:(a + g) * group] = 0
+    rows = h[o_tab:].view(np.int64).reshape(-1, K._COLS)
+    for q, a, g, c, n, nc in zip(qts, first, n_grp, c0, n_vals, n_cod):
+        codes[c:c + n] = q.codes
+        codes[c + n:c + nc] = 0
         params[a:a + g] = (_spans_of(q) if mixed else q.scales)[:g]
         zeros[a:a + g] = q.zeros[:g]
-    rows[:, 0], rows[:, 1] = first, n_vals
+    rows[:, 0], rows[:, 1], rows[:, 4] = first, n_vals, c0
     rows[:, 2] = [d.data_ptr() for d in dests]
     rows[:, 3] = [q.bits for q in qts] if mixed else 0
     rows = rows.copy()            # the host buffer goes back to its pool
     buf = host.to(dev, non_blocking=True)
     return K.Batch(
-        codes=buf[:n_groups * group],
+        codes=buf[:n_codes],
         params=buf[o_par:o_par + 4 * n_groups].view(torch.float32),
         zeros=buf[o_zero:o_zero + 4 * n_groups].view(torch.float32),
-        table=buf[o_tab:].view(torch.int64).view(-1, 4), dests=dests,
+        table=buf[o_tab:].view(torch.int64).view(-1, K._COLS), dests=dests,
         rows=rows, group=group, mixed=mixed)
 
 

@@ -129,3 +129,52 @@ def test_decode_plain_matches_pallas(hq, hkv, d, dtype):
     tout = DK.decode_attention_plain(tq, tk, tv, kv_len, kv_block=256)
     assert tout.dtype == tq.dtype and tuple(tout.shape) == jout.shape
     _close(jout, tout, DTYPES[dtype][2])
+
+
+# block sizes of the repo's configs, CLIs and tests: (q_block, kv_block)
+BLOCKS = [(16, 16), (32, 32), (48, 48), (96, 96), (128, 32), (32, 128),
+          (64, 96), (128, 128)]
+
+
+@pytest.mark.parametrize("q_block,kv_block", BLOCKS)
+def test_block_sparse_takes_blocks_of_16(q_block, kv_block):
+    """Any positive multiple of 16 (mma.sync's m16); the query rows a CTA
+    takes lie in one q-block."""
+    assert BK.supported_blocks(q_block, kv_block)
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = BK._cta_rows(q_block, dtype)
+        assert q_block % rows == 0 and rows % 16 == 0
+        assert rows <= (128 if dtype == torch.bfloat16 else 64)
+
+
+@pytest.mark.parametrize("q_block,kv_block", [
+    (24, 32), (32, 24), (8, 8), (0, 64), (64, -64), (100, 128)])
+def test_block_sparse_refuses_other_blocks(q_block, kv_block):
+    assert not BK.supported_blocks(q_block, kv_block)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("q_block,kv_block", [(16, 16), (32, 32), (96, 96),
+                                              (128, 32)])
+def test_block_sparse_plain_matches_pallas_at_block_sizes(q_block, kv_block,
+                                                          causal, dtype):
+    """hq 4 over hkv 2, d 64, s 192 (384 at a 128-row q-block), the
+    reference's lists at mass 0.9."""
+    hq, hkv, d, g = 4, 2, 64, 2
+    s = 384 if q_block == 128 else 192
+    (jq, jk, jv), (tq, tk, tv) = _arrays(q_block + kv_block + causal,
+                                         [(hq, s, d), (hkv, s, d),
+                                          (hkv, s, d)], dtype)
+    sc = block_scores(jq, jnp.repeat(jk, g, axis=0), q_block=q_block,
+                      kv_block=kv_block, causal=causal)
+    jidx, jcnt = select_blocks(sc, mass=0.9, q_block=q_block,
+                               kv_block=kv_block)
+    jout = JBK.block_sparse_attention(jq, jk, jv, jidx, jcnt, causal=causal,
+                                      q_block=q_block, kv_block=kv_block,
+                                      kv_group=g, interpret=True)
+    tout = BK.block_sparse_attention_plain(
+        tq, tk, tv, torch.from_numpy(np.array(jidx)),
+        torch.from_numpy(np.array(jcnt)), causal=causal, q_block=q_block,
+        kv_block=kv_block, kv_group=g)
+    _close(jout, tout, DTYPES[dtype][2])

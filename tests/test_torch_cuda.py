@@ -50,8 +50,12 @@ def _same_bits(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,width,group", [(2048, 512, 64), (37, 128, 64),
-                                           (129, 128, 32), (5, 192, 64)])
+@pytest.mark.parametrize("n,width,group", [
+    (2048, 512, 64), (37, 128, 64), (129, 128, 32), (5, 192, 64),
+    # groups that are not a multiple of 16; at width 20 (group 5) and 36
+    # (group 12) the rows' vectors straddle two rows
+    (16, 128, 8), (9, 96, 24), (6, 120, 40), (3, 200, 100), (7, 20, 5),
+    (5, 36, 12)])
 def test_kernels_bit_equal_to_plain(cuda, n, width, group, dtype):
     """Bit-equal (tolerance 0): both round code * step + zero once."""
     codes, params, zeros, bits = _inputs(n, width, group, n, cuda)
@@ -68,8 +72,12 @@ def test_kernels_bit_equal_to_plain(cuda, n, width, group, dtype):
 
 def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     codes, params, zeros, bits = _inputs(8, 128, 64, 0, cuda)
-    with pytest.raises(ValueError):        # group not a multiple of 16
-        K.kv_dequant(codes, params, zeros, group=8)
+    with pytest.raises(ValueError):        # group 24 does not divide 128
+        K.kv_dequant(codes, params[:, :5].contiguous(),
+                     zeros[:, :5].contiguous(), group=24)
+    with pytest.raises(ValueError):        # nor in the mixed form
+        K.kv_dequant_mixed(codes, params[:, :5].contiguous(),
+                           zeros[:, :5].contiguous(), bits, group=24)
     with pytest.raises(ValueError):        # non-contiguous parameters
         K.kv_dequant(codes, params.t().contiguous().t(), zeros, group=64)
     with pytest.raises(ValueError):        # misaligned codes
@@ -90,6 +98,18 @@ BATCHES = [
     (32, True, [("k", 0, 48, 4), ("k", 2, 4000, 6), ("v", 2, 4000, 5),
                 ("v", 5, 129, 3)]),
     (64, True, [("v", 1, 4096, 5), ("k", 3, 333, 5)]),
+    # groups that are not a multiple of 16: every entry padded to a
+    # 16-byte boundary of the flat codes; ragged counts
+    (8, False, [("k", 0, 1000, 5), ("v", 0, 999, 5), ("k", 2, 33, 5),
+                ("v", 3, 4096, 5), ("k", 4, 17, 5), ("v", 5, 1, 5)]),
+    (24, False, [("k", 1, 100, 4), ("v", 1, 4096, 4), ("v", 4, 31, 4),
+                 ("k", 5, 4095, 4)]),
+    (40, False, [("k", 0, 41, 5), ("v", 2, 4000, 5), ("k", 3, 7, 5)]),
+    (8, True, [("k", 0, 1000, 3), ("v", 0, 1001, 8), ("k", 1, 4096, 5),
+               ("v", 2, 65, 4), ("k", 3, 7, 6)]),
+    (24, True, [("k", 0, 48, 4), ("k", 2, 4001, 6), ("v", 2, 4000, 5),
+                ("v", 5, 129, 3)]),
+    (40, True, [("v", 1, 4096, 5), ("k", 3, 333, 5), ("k", 4, 39, 8)]),
 ]
 SENTINEL = -7.25
 
@@ -144,16 +164,18 @@ def test_batch_launcher_refuses_what_the_kernel_cannot_take(cuda):
             100, dtype=torch.bfloat16, device=cuda)], mixed=False))
 
 
-@pytest.mark.parametrize("sched", ["uniform", "attention"])
-def test_serving_on_card_goes_through_kernels(cuda, sched):
+@pytest.mark.parametrize("sched,group", [
+    ("uniform", 32), ("attention", 32), ("uniform", 8), ("attention", 24)])
+def test_serving_on_card_goes_through_kernels(cuda, sched, group):
     """A small server on the card dequantizes every streamed chunk in one
     launch (uniform or mixed form), and assembles exactly the cache a CPU
     server assembles from the same stored context with the plain
-    versions."""
+    versions; also at quantization groups that are not a multiple of
+    16."""
     cfg = get_smoke("sparkv-qwen3-4b", layers=3, d_model=64, heads=4,
                     d_ff=128, vocab=256)
     spcfg = SparKVConfig(chunk_tokens=32, q_block=16, kv_block=16,
-                         quant_group=32, alloc_schedule=sched)
+                         quant_group=group, alloc_schedule=sched)
     model = build_model(cfg)
     params = model.init(0, device=cuda)
     srv = SparKVServer(model, params, spcfg, chunk_tokens=32, device=cuda)
@@ -364,6 +386,42 @@ def test_block_sparse_bf16_tensor_cores_at_tile_edges(cuda, bh_kv, g, s, d,
     assert out.dtype == torch.bfloat16
     assert _close(out, plain, torch.bfloat16)
     assert not out[0, :q_block].any()          # cnt 0: the row sees no key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("q_block,kv_block,d,s", [
+    (16, 16, 64, 320), (32, 32, 128, 320), (96, 96, 64, 384),
+    (128, 32, 128, 384), (48, 80, 80, 480), (32, 96, 256, 384),
+    (16, 64, 128, 320), (64, 16, 64, 320)])
+def test_block_sparse_at_block_sizes_of_16(cuda, q_block, kv_block, d, s,
+                                           causal, dtype):
+    """Blocks that are multiples of 16 but not of 64: CTAs of 16 or 32
+    query rows, sub-tiles gathered from several kv blocks (16, 32) or
+    spanning one and a half (96), on lists with holes and on the lists
+    of the serving mass."""
+    g, bh_kv = 2, 2
+    gen = torch.Generator(device=cuda).manual_seed(q_block + kv_block + d)
+    q = _randn(gen, (bh_kv * g, s, d), dtype, cuda)
+    k = _randn(gen, (bh_kv, s, d), dtype, cuda)
+    v = _randn(gen, (bh_kv, s, d), dtype, cuda)
+    holes = _lists_with_holes(gen, bh_kv * g, s // q_block, s // kv_block,
+                              cuda)
+    lists = block_lists(q, k, g, mass=0.9, q_block=q_block,
+                        kv_block=kv_block, causal=causal)
+    for idx, cnt, seen, seen_cnt in (holes, (*lists, *lists)):
+        before = BK.LAUNCHES["block_sparse_attention"]
+        out = BK.block_sparse_attention(q, k, v, idx, cnt, causal=causal,
+                                        q_block=q_block, kv_block=kv_block,
+                                        kv_group=g)
+        assert BK.LAUNCHES["block_sparse_attention"] == before + 1
+        plain = BK.block_sparse_attention_plain(
+            q, k, v, seen, seen_cnt, causal=causal, q_block=q_block,
+            kv_block=kv_block, kv_group=g)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype
+        assert _close(out, plain, dtype)
+    assert not out.isnan().any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

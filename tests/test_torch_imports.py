@@ -93,6 +93,56 @@ def test_no_jax_or_reference_imports(path):
         assert not any(_blocked(n) for n in names), (path, names)
 
 
+HARNESS = ROOT / "benchmarks_torch"
+
+
+def test_harness_imports_with_jax_reference_and_its_harness_blocked():
+    """benchmarks_torch/ imports with JAX, the JAX package and the
+    reference's harness (`benchmarks`, `benchmarks.*`) blocked."""
+    mods = sorted(f"benchmarks_torch.{p.stem}" for p in HARNESS.glob("*.py"))
+    assert len(mods) == 23
+    blocked = BLOCKED + ("benchmarks",)
+    code = f"""
+import sys
+BLOCKED = {blocked!r}
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+import importlib
+for m in {mods!r}:
+    importlib.import_module(m)
+bad = sorted(m for m in sys.modules
+             if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not bad, bad
+print("ok", len({mods!r}))
+"""
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}",
+               OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in HARNESS.glob("*.py")))
+def test_harness_imports_neither_jax_nor_the_reference(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_blocked(n) or n == "benchmarks"
+                       or n.startswith("benchmarks.") for n in names), \
+            (path, names)
+
+
 def test_blocker_lets_the_port_through():
     assert _blocked("repro") and _blocked("repro.core.engine")
     assert _blocked("jax.numpy") and not _blocked("repro_torch.core")

@@ -253,6 +253,7 @@ def test_stage_builds_the_entry_table(rng):
         assert np.array_equal(b.table.numpy(), b.rows)
         assert np.array_equal(b.rows[:, 0], first)
         assert np.array_equal(b.rows[:, 1], n)
+        assert np.array_equal(b.rows[:, 4], first * group)
         assert b.rows[:, 2].tolist() == [d.data_ptr() for d in dests]
         assert b.rows[:, 3].tolist() == ([q.bits for q in qts] if mixed
                                          else [0] * len(qts))
@@ -279,3 +280,76 @@ def test_batch_refuses_a_table_that_misses_its_destinations(rng):
     b.dests = b.dests[::-1]
     with pytest.raises(ValueError):
         TK.dequant_batch_plain(b)
+
+
+# groups that are not a multiple of 16 (the reference's quantizer and
+# Pallas kernels take any group that divides the width): (rows, width,
+# group)
+ANY_GROUP = [(16, 128, 8), (9, 96, 24), (6, 120, 40), (3, 200, 100)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("n,width,group", ANY_GROUP)
+def test_plain_versions_match_pallas_at_any_group(n, width, group, dtype,
+                                                  rng):
+    """Both row-matrix forms, bit-equal to the Pallas kernels (interpret
+    mode), at groups of 8, 24, 40 and 100 codes."""
+    jdt, tdt = DTYPES[dtype]
+    codes, scales, zeros = _single_case(rng, n, width, group, 5)
+    jout = JK.kv_dequant(*map(jnp.asarray, (codes, scales, zeros)),
+                         group=group, interpret=True, out_dtype=jdt)
+    tout = TK.kv_dequant_plain(*_t(codes, scales, zeros), group=group,
+                               out_dtype=tdt)
+    _assert_bit_equal(np.asarray(jout), tout)
+    codes, spans, zeros, bits = _mixed_case(rng, n, width, group)
+    jout = JK.kv_dequant_mixed(*map(jnp.asarray, (codes, spans, zeros, bits)),
+                               group=group, interpret=True, out_dtype=jdt)
+    tout = TK.kv_dequant_mixed_plain(*_t(codes, spans, zeros, bits),
+                                     group=group, out_dtype=tdt)
+    _assert_bit_equal(np.asarray(jout), tout)
+
+
+@pytest.mark.parametrize("group,width,ok", [
+    (8, 128, True), (24, 96, True), (40, 120, True), (100, 200, True),
+    (64, 4096, True), (7, 7, True), (1, 3, True), (24, 100, False),
+    (64, 96, False), (0, 128, False), (-8, 128, False), (8, 0, False)])
+def test_supported_groups(group, width, ok):
+    """The launchers take any positive group that divides the row width;
+    needs no card."""
+    assert TK.supported(group, width) is ok
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("group,mixed", [(8, False), (24, False),
+                                         (40, True), (24, True)])
+def test_any_group_batch_matches_reference(group, mixed, dtype, rng):
+    """Staged batches at groups that are not a multiple of 16: every entry
+    starts on a 16-byte boundary of the flat codes (zeros between), and
+    the plain version writes the reference's values at each slot."""
+    jdt, tdt = DTYPES[dtype]
+    entries = [("k", 0, 1000, 5), ("v", 0, 999, 3), ("k", 2, 33, 6),
+               ("v", 3, 4096, 4), ("k", 4, 17, 8), ("v", 5, 1, 5)]
+    qts = [quantize((3 * rng.normal(size=n)).astype(np.float32), b, group)
+           for _, _, n, b in entries]
+    cache = {c: torch.full((SLOTS, SLOT), SENTINEL, dtype=tdt) for c in "kv"}
+    dests = [cache[c][slot] for c, slot, _, _ in entries]
+    b = TO.stage([_port_qt(q) for q in qts], dests, mixed=mixed)
+    c0, n = b.rows[:, 4], b.rows[:, 1]
+    assert not (c0 % 16).any()
+    for q, c, k in zip(qts, c0, n):
+        span = -(-k // group) * group
+        codes = b.codes[c:c + -(-span // 16) * 16].numpy()
+        assert np.array_equal(codes[:k], q.codes) and not codes[k:].any()
+    assert b.codes.numel() == c0[-1] + -(-(-(-n[-1] // group) * group)
+                                         // 16) * 16
+    TO.dequant_batch(b)
+    want = {c: _tbits(torch.full((SLOTS, SLOT), SENTINEL, dtype=tdt))
+            for c in "kv"}
+    if mixed:
+        jouts = JO.dequantize_chunks_mixed(qts, out_dtype=jdt)
+    else:
+        jouts = [JO.dequantize_chunk(q, out_dtype=jdt) for q in qts]
+    for (c, slot, k, _), j in zip(entries, jouts):
+        want[c][slot, :k] = _bits(j).reshape(-1)
+    for c in "kv":
+        assert np.array_equal(_tbits(cache[c]), want[c])

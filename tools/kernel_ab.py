@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's two attention kernels in two source trees on one card,
-in turns (A, B, B, A), at the shapes of chip_smoke.py's paths C and D.
+"""Time the port's kernels in two source trees on one card, in turns (A,
+B, B, A), at the shapes of chip_smoke.py's paths A, C and D.
 
-  python3 tools/attention_ab.py PATH_A PATH_B [--out FILE]
+  python3 tools/kernel_ab.py PATH_A PATH_B [--out FILE]
 
 Each PATH is the root of a checkout of this repository (for example the
 parent commit unpacked with `git archive` into a git-ignored directory,
@@ -15,9 +15,15 @@ torch.Generator on the card:
 - block-sparse, bf16: q (32 heads, 8192 tokens, 128), k/v (8 heads), the
   causal lists of kernels/block_sparse_attn/ops.block_lists at the
   serving mass 0.98 (path C's shape; path C takes layer 0's q/k/v of
-  random weights instead of random q/k/v);
+  random weights instead of random q/k/v); and path K's gemma-2b (8/1 heads
+  of 256) and zamba2-2.7b (32/32 heads of 80) shapes over 2048 tokens;
 - decode, bf16: q (1, 32, 128) over k/v (1, 32768, 8, 128) at kv_len
-  2048 (path D) and 32000 (path D's long cache).
+  2048 (path D) and 32000 (path D's long cache);
+- dequant, fp32 out: a cachegen request of path A (144 chunk tensors of
+  1024 x 8 x 128 5-bit codes, group 64) staged by
+  kernels/kv_dequant/ops.stage into K and V caches, one kv_dequant
+  launch (chip_smoke.py phase 2's request, drawn by its _request_chunks
+  from a seeded numpy generator).
 
 Prints one JSON line a turn and, with --out, writes them all to FILE.
 Without a card it exits non-zero.
@@ -35,11 +41,14 @@ import json, sys
 sys.path.insert(0, {root!r})
 sys.path.insert(0, {src!r})
 import torch
-from chip_smoke import time_ms
+import numpy as np
+from chip_smoke import _request_chunks, time_ms
 from repro_torch.configs import SparKVConfig
 from repro_torch.kernels.block_sparse_attn import kernel as BK
 from repro_torch.kernels.block_sparse_attn.ops import block_lists
 from repro_torch.kernels.decode_attn import kernel as DK
+from repro_torch.kernels.kv_dequant import kernel as K
+from repro_torch.kernels.kv_dequant import ops as KO
 
 dev = torch.device("cuda")
 gen = torch.Generator(device=dev).manual_seed(0)
@@ -57,9 +66,23 @@ out = {{"tree": {root!r}, "card": torch.cuda.get_device_name(0),
         "tiles": int(cnt.sum())}}
 out["block_sparse_ms"] = time_ms(
     lambda: BK.block_sparse_attention(q, k, v, idx, cnt, kv_group=4), flush)
+for name, hq, hkv, d in (("d256", 8, 1, 256), ("d80", 32, 32, 80)):
+    sq, sk, sv = (torch.randn((h, 2048, d), generator=gen,
+                              device=dev).to(bf) for h in (hq, hkv, hkv))
+    si, sc = block_lists(sq, sk, hq // hkv,
+                         mass=SparKVConfig().attention_mass, q_block=128,
+                         kv_block=128, causal=True)
+    out[f"block_sparse_{{name}}_ms"] = time_ms(
+        lambda: BK.block_sparse_attention(sq, sk, sv, si, sc,
+                                          kv_group=hq // hkv), flush)
 for n in (2048, 32000):
     out[f"decode_{{n}}_ms"] = time_ms(
         lambda: DK.decode_attention(dq, dk, dv, n), flush)
+del q, k, v, dq, dk, dv
+qts, caches = _request_chunks(np.random.default_rng(0), 36, [5], dev)
+cache, dests = caches()
+batch = KO.stage(qts, dests, mixed=False)
+out["dequant_cachegen_ms"] = time_ms(lambda: K.dequant_batch(batch), flush)
 print(json.dumps(out), flush=True)
 """
 
