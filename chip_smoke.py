@@ -120,7 +120,20 @@ Phases, in order; any failure exits non-zero:
      python -m benchmarks_torch.run --quick --only fig8,fig4,quality
      --device cuda; its exit code decides, each bench's wall time is
      printed, and every cachegen request of the quality bench must have
-     dequantized its streamed chunks in one kv_dequant launch.
+     dequantized its streamed chunks in one kv_dequant launch;
+ 19. path X: the port's examples (examples_torch/) as a user runs them.
+     quickstart in this process under repro_torch.device.named("cuda"),
+     at its own size: its sparkv and cachegen requests each dequantize in
+     exactly one kv_dequant launch, local_prefill in none at fidelity
+     1.00. Each in a subprocess whose exit code decides: train_lm at its
+     own size (~100M params, 200 steps, a failure injected at step 120,
+     the supervisor's restart from the last commit, its own "loss
+     improved" assertion; restarts, the step it resumed at, first and
+     last loss and ms a step printed), elastic_rescale on a one-rank NCCL
+     group and a (1, 1) mesh, and serve_fleet and serve_under_volatility
+     through python -m examples_torch.run ... --device cuda (these two,
+     host simulations, run beside the others from the path's start).
+     Every wall time stands beside the card's name and power limit.
 
 Path E's TTFT, SLO attainment and energy are the fleet simulator's
 virtual clock, labelled "(simulated)"; beside them it prints what the
@@ -2333,6 +2346,160 @@ def path_harness(*, benches=HARNESS_BENCHES, device="cuda", timeout=600):
     return sum(launches)
 
 
+def _start_example(label, cmd, tmp):
+    """Starts one example of examples_torch/ in a subprocess from the
+    checkout's root, its temporary files (TMPDIR) and its output under
+    `tmp`: (the process, its start on the host's wall clock)."""
+    env = dict(os.environ, PYTHONPATH=SRC, TMPDIR=tmp)
+    t0 = time.time()
+    with open(os.path.join(tmp, f"{label}.out"), "w") as out, \
+            open(os.path.join(tmp, f"{label}.err"), "w") as err:
+        proc = subprocess.Popen([sys.executable, *cmd], env=env, cwd=ROOT,
+                                stdout=out, stderr=err, text=True)
+    return proc, t0
+
+
+def _finish_example(label, cmd, started, tmp, card, timeout):
+    """Waits up to `timeout` s for an example started by _start_example
+    and prints its wall time; its stdout. Its exit code decides. The wall
+    time ends at the last write to its output files, so an example that
+    ended while this process was busy is not charged the wait (its stdout,
+    a file, is flushed when it exits)."""
+    proc, t0 = started
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise SmokeError(f"path X {label}: over {timeout} s")
+    files = [os.path.join(tmp, f"{label}.{s}") for s in ("out", "err")]
+    wall = max(map(os.path.getmtime, files)) - t0
+    with open(files[0]) as f:
+        out = f.read()
+    with open(files[1]) as f:
+        err = f.read()
+    print(f"[path X] {label}: {' '.join(cmd)}: exit {proc.returncode}, "
+          f"{wall:.1f} s wall (host clock, process start to its last output; "
+          f"{card})", flush=True)
+    if proc.returncode:
+        raise SmokeError(f"path X {label}: exit {proc.returncode}: "
+                         f"{out[-2000:]}\n{err[-3000:]}")
+    return out
+
+
+def path_x(card, *, device="cuda", train_steps=200, fail_at=120):
+    """The port's examples (examples_torch/) on the card, as a user runs
+    them. serve_fleet and serve_under_volatility, host simulations, start
+    through the runner at the path's start and run beside quickstart and
+    elastic_rescale. quickstart runs in this process under
+    repro_torch.device.named: its sparkv and cachegen requests dequantize
+    their streamed chunks in exactly one kv_dequant launch each,
+    local_prefill in none, at fidelity 1.00. elastic_rescale runs on a
+    one-rank NCCL group. train_lm runs last and alone, so its ms a step
+    shares the card and the host with no other example: its own size
+    (the ~100M model, `train_steps` steps, a failure injected at
+    `fail_at` and a restart from the last commit; its own assertion that
+    the loss improved). Each subprocess's exit code decides, and its
+    TMPDIR is a temporary directory of this run. The card's name and
+    power limit (`card`) stand beside every number. Returns quickstart's
+    kv_dequant launches."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    import examples_torch.quickstart as Q
+    from repro_torch.device import named
+    from repro_torch.kernels.kv_dequant import kernel as K
+    from repro_torch.serving import engine as E
+
+    t_path = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        serving = {name: ["-m", "examples_torch.run", name, "--device",
+                          device]
+                   for name in ("serve_fleet", "serve_under_volatility")}
+        procs = {}
+        try:
+            for name, cmd in serving.items():
+                procs[name] = _start_example(name, cmd, tmp)
+
+            launched = {}
+            generate = E.SparKVServer.generate
+
+            def counted(self, cid, prompt, max_new=8, *, policy="sparkv",
+                        **kw):
+                K.reset_launches()
+                r = generate(self, cid, prompt, max_new, policy=policy, **kw)
+                launched[policy] = dict(K.LAUNCHES)
+                return r
+
+            buf = io.StringIO()
+            E.SparKVServer.generate = counted
+            try:
+                t0 = time.perf_counter()
+                with named(device), contextlib.redirect_stdout(buf):
+                    results = Q.main([])
+                wall = time.perf_counter() - t0
+            finally:
+                E.SparKVServer.generate = generate
+            for line in buf.getvalue().splitlines():
+                print(f"[path X] quickstart: {line}")
+            print(f"[path X] quickstart: {wall:.1f} s wall (host clock; "
+                  f"{card}); dequant launches a request {launched}",
+                  flush=True)
+            for policy, r in results.items():
+                want = 1 if policy in ("sparkv", "cachegen") else 0
+                check(launched[policy] == {"kv_dequant": want,
+                                           "kv_dequant_mixed": 0},
+                      f"path X quickstart {policy}: dequant launches "
+                      f"{launched[policy]}, not {want} kv_dequant")
+                check((r.n_streamed > 0) == bool(want),
+                      f"path X quickstart {policy}: {r.n_streamed} streamed "
+                      "chunks")
+            check(results["local_prefill"].top1_agreement == 1.0,
+                  f"path X quickstart local_prefill: fidelity "
+                  f"{results['local_prefill'].top1_agreement}, not 1.00")
+
+            elastic = ["examples_torch/elastic_rescale.py", "--device",
+                       device]
+            procs["elastic_rescale"] = _start_example("elastic_rescale",
+                                                      elastic, tmp)
+            out = _finish_example("elastic_rescale", elastic,
+                                  procs["elastic_rescale"], tmp, card, 300)
+            for line in out.splitlines():
+                print(f"[path X] elastic_rescale: {line}")
+            check("1 devices visible (nccl ranks on cuda)" in out,
+                  f"path X elastic_rescale: not a one-rank NCCL group: "
+                  f"{out[-1000:]}")
+            for name, cmd in serving.items():
+                out = _finish_example(name, cmd, procs[name], tmp, card, 400)
+                for line in out.splitlines()[-3:]:
+                    print(f"[path X] {name}: {line}")
+
+            train = ["examples_torch/train_lm.py", "--device", device,
+                     "--steps", str(train_steps), "--fail-at", str(fail_at)]
+            procs["train_lm"] = _start_example("train_lm", train, tmp)
+            out = _finish_example("train_lm", train, procs["train_lm"], tmp,
+                                  card, 600)
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    restarts = re.search(r"(\d+) steps, (\d+) restarts", out)
+    run = re.search(r"last run: steps (\d+)-\d+, ([\d.]+) ms a step", out)
+    loss = re.search(r"loss ([\d.]+) -> ([\d.]+)  \[improved\]", out)
+    check(restarts and run and loss, f"path X train_lm: output {out[-2000:]}")
+    check(int(restarts.group(2)) == 1,
+          f"path X train_lm: {restarts.group(2)} restarts, not 1")
+    print(f"[path X] train_lm: {restarts.group(1)} steps, "
+          f"{restarts.group(2)} restart (failure at step {fail_at}), resumed "
+          f"at step {run.group(1)}; loss {loss.group(1)} -> "
+          f"{loss.group(2)}; {run.group(2)} ms a step over the resumed run, "
+          f"alone (host clock, checkpoints included; {card})", flush=True)
+    print(f"[path X] {time.perf_counter() - t_path:.1f} s wall (host clock; "
+          f"{card})", flush=True)
+    return sum(n["kv_dequant"] for n in launched.values())
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2505,6 +2672,10 @@ def main():
                   "(host clock)", flush=True)
         # path harness: the port's benchmark harness (fig8, fig4, quality)
         launches["kv_dequant"] += path_harness()
+        # path X: the examples (quickstart, train_lm, serve_fleet,
+        # serve_under_volatility, elastic_rescale)
+        free_card()
+        launches["kv_dequant"] += path_x(smi)
     except SmokeError as e:
         fail(str(e))
 

@@ -241,7 +241,8 @@ def train_loop(model: Model, tcfg: TrainConfig, *, batch: int, seq: int,
     last checkpoint if present, injects faults if configured (caller
     catches + restarts), checkpoints periodically. The loss runs under
     `rules`, as the reference's does. Returns final metrics + loss
-    history."""
+    history, and the step it started from (``start``: the restored
+    commit's, else 0)."""
     dev = resolve(device)
     step_fn, opt = build_train_step(model, tcfg, rules)
 
@@ -276,6 +277,7 @@ def train_loop(model: Model, tcfg: TrainConfig, *, batch: int, seq: int,
         "history": history,
         "final_loss": history[-1][1] if history else None,
         "steps": steps,
+        "start": start,
         "wall_s": time.time() - t0,
         "params": params,
         "opt": opt_state,

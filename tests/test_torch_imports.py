@@ -201,3 +201,60 @@ def test_spawned_ranks_block_jax_first():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode != 0 and "blocked: jax" in out.stderr
+
+
+EXAMPLES = ROOT / "examples_torch"
+# scripts that run when imported; their imports are imported instead
+SCRIPTS = ("serve_fleet", "serve_under_volatility")
+
+
+def _imported_modules(path):
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            out.append(node.module or "")
+    return out
+
+
+def test_examples_import_with_jax_and_reference_blocked():
+    """examples_torch/ imports with JAX and the JAX package blocked: the
+    runner and the ports as modules, and everything the copied scripts
+    import."""
+    mods = sorted(f"examples_torch.{p.stem}" if p.stem != "__init__"
+                  else "examples_torch" for p in EXAMPLES.glob("*.py")
+                  if p.stem not in SCRIPTS)
+    assert len(mods) == 5
+    for name in SCRIPTS:
+        mods += _imported_modules(EXAMPLES / f"{name}.py")
+    code = f"""
+import sys
+BLOCKED = {BLOCKED!r}
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+import importlib
+for m in {mods!r}:
+    importlib.import_module(m)
+bad = sorted(m for m in sys.modules
+             if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not bad, bad
+print("ok", len({mods!r}))
+"""
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}",
+               OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in EXAMPLES.glob("*.py")))
+def test_examples_import_neither_jax_nor_the_reference(path):
+    names = _imported_modules(ROOT / path)
+    assert not any(_blocked(n) for n in names), (path, names)
