@@ -51,19 +51,36 @@ Phases, in order; any failure exits non-zero:
      fp32; each call one launch, held against its plain version on the
      same inputs and lists; bf16 timed beside its bound and SDPA (masked
      for block-sparse, enable_gqa for decode); the path's wall time;
-  8. path E1: SparKVServer.serve_fleet on path A's server and context: 32
+     then checks that paths C, D and K launched no generic kernel and
+     that the attention ops copied no input;
+  8. path O: every shape, type and position the reference takes. The
+     generic kernels at tests/test_torch_kernel_shapes.py's shapes (head
+     sizes 48-512, blocks (8, 8), (24, 24), (40, 20), groups 1-32) in
+     fp32, bf16 and fp16, each call one launch of the kernel the shape
+     test picks, against its plain version; fp16 through the tensor-core
+     kernels at Qwen3-4B's heads (block-sparse over 2048 tokens, decode
+     at 2048 and 32,000), timed beside bf16; the generic kernels at a
+     full width (32/8 heads of 96 over 2040 tokens in 24-row blocks;
+     40/2 heads of 96 at kv_len 32,000) in the three types, timed beside
+     their plain versions, bounds and SDPA; other layouts through the
+     ops layer (copied, counted); one sparkv request on path A's server
+     with 130 new tokens, past the 128-slot tail buffer, in one
+     kv_dequant launch, and its streamed chunks dequantized into fp16
+     caches in one launch, bit-equal to the plain version. Every kernel
+     call runs with the plain versions replaced by ones that raise;
+  9. path E1: SparKVServer.serve_fleet on path A's server and context: 32
      jobs, seeded Poisson arrivals, the policies sparkv, strong_hybrid,
      cachegen and local_prefill mixed, a 2-slot WFQ run queue, SLO
      admission with a deadline and 8 decoded tokens a request; then one
      load_context of a streaming policy the fleet admitted (sparkv where
      it did), in exactly one kv_dequant launch;
-  9. path E2: a standalone ServingCluster at sparkv-qwen3-4b's width
+ 10. path E2: a standalone ServingCluster at sparkv-qwen3-4b's width
      with the planner trained on the card: 256 requests of the traffic
      mix of examples/serve_fleet.py on 4 devices and 2 APs, a KV memory
      budget that forces evictions, the cloud KV store, a handoff storm
      with the fleet LP rebalancer and the online predictor refresh on
      the card; run twice, and the two fleet fingerprints must be equal;
- 10. path F: granite-moe-3b-a800m (the MoE family) at full width and
+11. path F: granite-moe-3b-a800m (the MoE family) at full width and
      depth through SparKVServer, random bf16 weights from a seed; one
      2048-token context (1024-token chunks, 64 KV chunks of head_dim 64);
      requests sparkv and local_prefill, 8 new tokens each: the streaming
@@ -71,24 +88,24 @@ Phases, in order; any failure exits non-zero:
      bit-equal to the plain dequant of the same stored chunks,
      local_prefill top-1 1.0; then the MoE layers' capacity drop rate
      over the context's prefill;
- 11. path G: mamba2-130m (SSM) and zamba2-2.7b (hybrid) at full width and
+12. path G: mamba2-130m (SSM) and zamba2-2.7b (hybrid) at full width and
      depth, random bf16 weights from a seed: a 2048-token prefill and 8
      decode steps each, timed with CUDA events; the first step's logits
      against the 2049-token prefill's last logits (printed), and the same
      check on an fp32 copy of the weights at 256 tokens (limit 0.15, as
      tests/test_models.py). Each model is freed before the next is built;
- 12. path H: whisper-tiny (enc-dec) at full width and depth, random bf16
+13. path H: whisper-tiny (enc-dec) at full width and depth, random bf16
      weights: prefill (encode + cross-K/V) of 4 x 1500 frames and 32
      greedy decode steps, CUDA events; 16 teacher-forced decode steps
      against decode_train's logits on an fp32 copy (limit 0.15) and in
      bf16 (printed);
- 13. path T1: qwen2.5-3b trained at full width and depth (bf16 params,
+14. path T1: qwen2.5-3b trained at full width and depth (bf16 params,
      fp32 moments, remat "full"): 6 build_train_step steps on data_batch
      at 2 x 1024 tokens, loss, grad norm, lr and ms a step (CUDA events),
      peak memory, tokens/s and model FLOP/s; loss and grad norm finite,
      params changed; then microbatches=2 against 1 on the first batch
      (loss within 5e-3, params within 2e-2, tests/test_training.py);
- 14. path S: the same training through the sharded step: a one-rank
+15. path S: the same training through the sharded step: a one-rank
      NCCL process group (a local store, no gloo), make_local_mesh((1, 1))
      and make_rules, qwen2.5-3b at full width and depth through
      jit_train_step (DTensor params and moments) for T1's first 3 steps
@@ -97,12 +114,12 @@ Phases, in order; any failure exits non-zero:
      peak memory beside T1's; then compressed_psum over one layer's grads
      on NCCL (the mean equals the grads to int8 rounding, the residual
      carries); the group is destroyed before T2;
- 15. path T2: whisper-tiny's train_loop at 4 x 1500 frames, 12 steps,
+16. path T2: whisper-tiny's train_loop at 4 x 1500 frames, 12 steps,
      a checkpoint every 4, uninterrupted and with a failure injected at
      step 7 and a restart from the last commit, under deterministic
      algorithms: the final params and moments bit-equal; the checkpoint
      write and restore seconds;
- 16. path P: prefill and decode over DTensors: a one-rank NCCL group, a
+17. path P: prefill and decode over DTensors: a one-rank NCCL group, a
      (1, 1) mesh and the dry run's rules (prefill, and weight-stationary
      for decode); sparkv-qwen3-4b, then mamba2-130m, at full width and
      depth, random bf16 weights from a seed: a 2048-token prefill and 8
@@ -110,18 +127,18 @@ Phases, in order; any failure exits non-zero:
      weights and tokens, every logits tensor and the prefill and final
      caches within 1e-6; ms a prefill and a decode step (CUDA events)
      and ops a call, through DTensor and plain; the group is destroyed;
- 17. path R: the dry run in a subprocess: a fake 256-rank process group,
+18. path R: the dry run in a subprocess: a fake 256-rank process group,
      the 16x16 production mesh typed CUDA over fake tensors, and the
      cells mamba2-130m x decode_32k and granite-moe-3b-a800m x
      decode_32k; each record's status, seconds, peak bytes a rank,
      flops, collectives by kind and roofline terms (the H100 model's
      estimates); the subprocess's exit code decides;
- 18. the harness path: the port's benchmark harness in a subprocess,
+19. the harness path: the port's benchmark harness in a subprocess,
      python -m benchmarks_torch.run --quick --only fig8,fig4,quality
      --device cuda; its exit code decides, each bench's wall time is
      printed, and every cachegen request of the quality bench must have
      dequantized its streamed chunks in one kv_dequant launch;
- 19. path X: the port's examples (examples_torch/) as a user runs them.
+20. path X: the port's examples (examples_torch/) as a user runs them.
      quickstart in this process under repro_torch.device.named("cuda"),
      at its own size: its sparkv and cachegen requests each dequantize in
      exactly one kv_dequant launch, local_prefill in none at fidelity
@@ -178,8 +195,9 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
-ATOL = {"float32": 2e-5, "bfloat16": 2e-2}   # attention, as in
-                                             # tests/test_kernels.py
+# attention, as in tests/test_kernels.py; fp16 as in
+# tests/test_torch_kernel_shapes.py (two fp16 steps at magnitudes under 4)
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 4e-3}
 
 KERNELS = {
     "kv_dequant": {
@@ -192,6 +210,12 @@ KERNELS = {
         "route": "cuda", "source": "src/repro_torch/csrc/block_sparse_attn.cu",
         "replaces": "src/repro/kernels/block_sparse_attn/kernel.py:82"},
     "decode_attention": {
+        "route": "cuda", "source": "src/repro_torch/csrc/decode_attn.cu",
+        "replaces": "src/repro/kernels/decode_attn/kernel.py:65"},
+    "block_sparse_attention_generic": {
+        "route": "cuda", "source": "src/repro_torch/csrc/block_sparse_attn.cu",
+        "replaces": "src/repro/kernels/block_sparse_attn/kernel.py:82"},
+    "decode_attention_generic": {
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn/kernel.py:65"},
 }
@@ -677,8 +701,8 @@ def _causal_pairs(idx, cnt, q_block, kv_block):
 def sparse_prefill_kept(q, k, v, mass, **blocks):
     """ops.sparse_prefill_attention(q, k, v, **blocks) as a user calls it,
     with the arguments it hands the kernel observed (not changed); returns
-    (out, cnt, the kernel's args, block-sparse launches during the call,
-    wall seconds)."""
+    (out, cnt, the kernel's args, block-sparse launches during the call, of
+    either kernel, wall seconds)."""
     import torch
     from repro_torch.kernels.block_sparse_attn import kernel as BK
     from repro_torch.kernels.block_sparse_attn import ops as BO
@@ -689,7 +713,7 @@ def sparse_prefill_kept(q, k, v, mass, **blocks):
         seen["args"] = args
         return launch(*args, **kw)
 
-    before = BK.LAUNCHES["block_sparse_attention"]
+    before = sum(BK.LAUNCHES.values())
     BK.block_sparse_attention = launch_and_keep
     try:
         t0 = time.perf_counter()
@@ -699,8 +723,8 @@ def sparse_prefill_kept(q, k, v, mass, **blocks):
         wall = time.perf_counter() - t0
     finally:
         BK.block_sparse_attention = launch
-    return (out, cnt, seen["args"],
-            BK.LAUNCHES["block_sparse_attention"] - before, wall)
+    return (out, cnt, seen["args"], sum(BK.LAUNCHES.values()) - before,
+            wall)
 
 
 def block_sparse_vs_sdpa(qf, kf, vf, idx, cnt, g, qb, flush, kb=None):
@@ -1078,6 +1102,376 @@ def path_k(err, device, *, n_tokens=2048, long_len=32000, seed=0):
         print(f"[path K] {r['arch']:22s} {r['hq']}/{r['hkv']}x{r['d']} "
               f"{r['dtype']}: " + "; ".join(cells) + f"; {errs}")
     return launches
+
+
+# ----------------------------------------------------------------------------
+# path O: every shape, type and position the reference takes
+# ----------------------------------------------------------------------------
+
+# the shapes of tests/test_torch_kernel_shapes.py: block-sparse (head size,
+# (q_block, kv_block), group) over 120 tokens, decode (head size, group)
+O_BSA = ((48, (24, 24), 3), (48, (8, 8), 1), (96, (8, 8), 3),
+         (96, (40, 20), 1), (160, (40, 20), 1), (160, (24, 24), 3),
+         (512, (8, 8), 1), (512, (40, 20), 3))
+O_DEC = tuple((d, g) for d in (48, 96, 512) for g in (20, 32))
+O_DTYPES = ("float32", "bfloat16", "float16")
+
+
+class NoPlain:
+    """Every plain version replaced, while the block runs, by one that
+    raises: a kernel call on the card that reached a plain version fails
+    the run. Restored on exit."""
+
+    NAMES = (("block_sparse_attn", ("block_sparse_attention_plain",)),
+             ("decode_attn", ("decode_attention_plain",)),
+             ("kv_dequant", ("kv_dequant_plain", "kv_dequant_mixed_plain",
+                             "dequant_batch_plain")))
+
+    def __enter__(self):
+        import importlib
+        self.saved = []
+        for pkg, names in self.NAMES:
+            mod = importlib.import_module(f"repro_torch.kernels.{pkg}.kernel")
+            for name in names:
+                self.saved.append((mod, name, getattr(mod, name)))
+
+                def refuse(*a, _name=name, **kw):
+                    raise SmokeError(f"{_name} ran during a kernel call")
+                setattr(mod, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _one_launch(counts, fn, label):
+    """fn() under NoPlain; checks that it launched exactly one kernel of
+    `counts` and returns (its output, that kernel's name)."""
+    before = dict(counts)
+    with NoPlain():
+        out = fn()
+    moved = {k: counts[k] - before[k] for k in counts
+             if counts[k] != before[k]}
+    check(len(moved) == 1 and list(moved.values()) == [1],
+          f"{label}: launches {moved}, not one")
+    return out, next(iter(moved))
+
+
+def _o_dtypes():
+    import torch
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}
+
+
+def o_generic_shapes(err, device, gen, count):
+    """Path O: the generic kernels at the CPU test's shapes
+    (tests/test_torch_kernel_shapes.py) in fp32, bf16 and fp16, each call
+    one launch of the generic kernel, against its plain version."""
+    import torch
+    from repro_torch.kernels.block_sparse_attn import kernel as BK
+    from repro_torch.kernels.block_sparse_attn import ops as BO
+    from repro_torch.kernels.block_sparse_attn.ops import block_lists
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn import ops as DO
+    dtypes = _o_dtypes()
+    t0 = time.perf_counter()
+    for i, (d, (qb, kb), g) in enumerate(O_BSA):
+        for dn in O_DTYPES:
+            causal = (i + len(dn)) % 2 == 0
+            q, k, v = (torch.randn((n, 120, d), generator=gen,
+                                   device=device).to(dtypes[dn])
+                       for n in (2 * g, 2, 2))
+            idx, cnt = block_lists(q, k, g, mass=0.9, q_block=qb,
+                                   kv_block=kb, causal=causal)
+            kw = dict(causal=causal, q_block=qb, kv_block=kb, kv_group=g)
+            out, name = _one_launch(BK.LAUNCHES, lambda: BO.
+                                    block_sparse_attention(q, k, v, idx,
+                                                           cnt, **kw),
+                                    f"path O block-sparse d{d}")
+            check(name == "block_sparse_attention_generic",
+                  f"path O: d {d} blocks ({qb}, {kb}) launched {name}")
+            _compare_close(err, count(name), out,
+                           BK.block_sparse_attention_plain(q, k, v, idx,
+                                                           cnt, **kw), dn,
+                           f"path O {2 * g}/2x{d} ({qb}, {kb}) "
+                           f"{'causal' if causal else 'full'} {dn}")
+    for d, g in O_DEC:
+        for dn in O_DTYPES:
+            q = torch.randn((2, g, d), generator=gen,
+                            device=device).to(dtypes[dn])
+            k, v = (torch.randn((2, 512, 1, d), generator=gen,
+                                device=device).to(dtypes[dn])
+                    for _ in range(2))
+            out, name = _one_launch(DK.LAUNCHES, lambda: DO.decode_attention(
+                q, k, v, 301), f"path O decode d{d} g{g}")
+            check(name == "decode_attention_generic",
+                  f"path O: decode d {d} g {g} launched {name}")
+            _compare_close(err, count(name), out,
+                           DK.decode_attention_plain(q, k, v, 301), dn,
+                           f"path O decode {g}/1x{d} len 301 {dn}")
+    print(f"[path O] generic kernels at the CPU test's shapes: "
+          f"{time.perf_counter() - t0:.1f} s wall (host clock)", flush=True)
+
+
+def o_fp16(err, device, gen, count, *, n_tokens=2048, long_len=32000):
+    """Path O: fp16 through the tensor-core kernels at Qwen3-4B's heads,
+    bf16 beside it: block-sparse over n_tokens, decode at n_tokens and
+    long_len, each one launch against its plain version, timed beside
+    its bound and SDPA."""
+    import torch
+    from repro_torch.configs import SparKVConfig
+    from repro_torch.kernels.block_sparse_attn import kernel as BK
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn import ops as DO
+    dtypes = _o_dtypes()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    mass, hq, hkv, d = SparKVConfig().attention_mass, 32, 8, 128
+    base = [torch.randn((1, n_tokens, h, d), generator=gen, device=device)
+            for h in (hq, hkv, hkv)]
+    dq0 = torch.randn((1, hq, d), generator=gen, device=device)
+    dkv0 = [torch.randn((1, long_len, hkv, d), generator=gen,
+                        device=device) for _ in range(2)]
+    for dn in ("float16", "bfloat16"):
+        q, k, v = (x.to(dtypes[dn]) for x in base)
+        (out, _, (qf, kf, vf, idx, cnt), _, _), name = _one_launch(
+            BK.LAUNCHES, lambda: sparse_prefill_kept(q, k, v, mass),
+            f"path O block-sparse {dn}")
+        check(name == "block_sparse_attention", f"path O {dn}: {name}")
+        count(name)
+        plain = BK.block_sparse_attention_plain(qf, kf, vf, idx, cnt,
+                                                kv_group=hq // hkv)
+        out = out.transpose(1, 2).reshape(hq, n_tokens, d)
+        _compare_close(err, "block_sparse_attention", out, plain, dn,
+                       f"path O {hq}/{hkv}x{d} {n_tokens} tokens {dn}")
+        e = _max_err(out, plain)
+        ms, lib, nbytes, ops = block_sparse_vs_sdpa(qf, kf, vf, idx, cnt,
+                                                    hq // hkv, 128, flush)
+        p = _perf(e, ms, None, lib, nbytes, ops, BF16_FLOPS)
+        print(f"[path O] block_sparse_attention {dn} {hq}/{hkv}x{d}, "
+              f"{int(cnt.sum())} tiles: kernel {ms:.6f} ms, bound "
+              f"{p['bound_ms']:.6f} ms ({p['bound_by']}, "
+              f"{p['bound_ms'] / ms:.1%}), SDPA {lib:.6f} ms; err vs plain "
+              f"{e:.3e}", flush=True)
+        dq = dq0.to(dtypes[dn])
+        dk, dv = (x.to(dtypes[dn]) for x in dkv0)
+        for n_len in (n_tokens, long_len):
+            out, name = _one_launch(DK.LAUNCHES, lambda: DO.decode_attention(
+                dq, dk, dv, n_len), f"path O decode {dn}")
+            check(name == "decode_attention", f"path O {dn}: {name}")
+            count(name)
+            plain = DK.decode_attention_plain(dq, dk, dv, n_len)
+            _compare_close(err, "decode_attention", out, plain, dn,
+                           f"path O decode {hq}/{hkv}x{d} len {n_len} {dn}")
+            ms, lib, nbytes, ops = decode_vs_sdpa(dq, dk, dv, n_len, flush)
+            p = _perf(_max_err(out, plain), ms, None, lib, nbytes, ops,
+                      BF16_FLOPS)
+            print(f"[path O] decode_attention {dn} {hq}/{hkv}x{d} len "
+                  f"{n_len}: kernel {ms:.6f} ms, bound {p['bound_ms']:.6f} "
+                  f"ms ({p['bound_by']}, {p['bound_ms'] / ms:.1%}), SDPA "
+                  f"{lib:.6f} ms", flush=True)
+
+
+def o_generic_full_width(err, device, gen, count, *, n_tokens=2048,
+                         long_len=32000):
+    """Path O: the generic kernels at a full width in fp32, bf16 and
+    fp16, each one launch against its plain version, timed beside their
+    plain versions, bounds and SDPA; returns the bf16 perf entries (the
+    kernels line's): Qwen3-4B's 32/8 heads at head size 96 over 2040
+    tokens in 24-token blocks (block-sparse), 40/2 heads of 96 at kv_len
+    long_len (decode, g 20)."""
+    import torch
+    from repro_torch.configs import SparKVConfig
+    from repro_torch.kernels.block_sparse_attn import kernel as BK
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn import ops as DO
+    dtypes = _o_dtypes()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    mass, hq, hkv = SparKVConfig().attention_mass, 32, 8
+    perf = {}
+    g, hd, gt = hq // hkv, 96, n_tokens - n_tokens % 24
+    base = [torch.randn((1, gt, h, hd), generator=gen, device=device)
+            for h in (hq, hkv, hkv)]
+    dq0 = torch.randn((1, 40, hd), generator=gen, device=device)
+    dkv0 = [torch.randn((1, long_len, 2, hd), generator=gen, device=device)
+            for _ in range(2)]
+    for dn in O_DTYPES:
+        dt = dtypes[dn]
+        peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
+        q, k, v = (x.to(dt) for x in base)
+        (out, _, (qf, kf, vf, idx, cnt), _, _), name = _one_launch(
+            BK.LAUNCHES, lambda: sparse_prefill_kept(q, k, v, mass,
+                                                     q_block=24,
+                                                     kv_block=24),
+            f"path O generic block-sparse {dn}")
+        check(name == "block_sparse_attention_generic",
+              f"path O generic {dn}: {name}")
+        count(name)
+        plain = BK.block_sparse_attention_plain(qf, kf, vf, idx, cnt,
+                                                kv_group=g, q_block=24,
+                                                kv_block=24)
+        out = out.transpose(1, 2).reshape(hq, gt, hd)
+        _compare_close(err, "block_sparse_attention_generic", out, plain, dn,
+                       f"path O {hq}/{hkv}x{hd} {gt} tokens (24, 24) {dn}")
+        e = _max_err(out, plain)
+        ms, lib, nbytes, ops = block_sparse_vs_sdpa(qf, kf, vf, idx, cnt, g,
+                                                    24, flush)
+        plain_ms = time_ms(lambda: BK.block_sparse_attention_plain(
+            qf, kf, vf, idx, cnt, kv_group=g, q_block=24, kv_block=24),
+            flush, n=10)
+        p = _perf(e, ms, plain_ms, lib, nbytes, ops, peak)
+        print(f"[path O] block_sparse_attention_generic {dn} "
+              f"{hq}/{hkv}x{hd}, blocks (24, 24), {int(cnt.sum())} tiles: "
+              f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+              f"{p['bound_ms']:.6f} ms ({p['bound_by']}, "
+              f"{p['bound_ms'] / ms:.1%}), SDPA with the block mask "
+              f"{lib:.6f} ms", flush=True)
+        if dn == "bfloat16":
+            perf["block_sparse_attention_generic"] = p
+        dq = dq0.to(dt)
+        dk, dv = (x.to(dt) for x in dkv0)
+        out, name = _one_launch(DK.LAUNCHES, lambda: DO.decode_attention(
+            dq, dk, dv, long_len), f"path O generic decode {dn}")
+        check(name == "decode_attention_generic", f"path O: {name}")
+        count(name)
+        plain = DK.decode_attention_plain(dq, dk, dv, long_len)
+        _compare_close(err, name, out, plain, dn,
+                       f"path O decode 40/2x{hd} len {long_len} {dn}")
+        ms, lib, nbytes, ops = decode_vs_sdpa(dq, dk, dv, long_len, flush)
+        plain_ms = time_ms(lambda: DK.decode_attention_plain(
+            dq, dk, dv, long_len), flush, n=10)
+        p = _perf(_max_err(out, plain), ms, plain_ms, lib, nbytes, ops,
+                  peak)
+        print(f"[path O] decode_attention_generic {dn} 40/2x{hd} len "
+              f"{long_len}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+              f"bound {p['bound_ms']:.6f} ms ({p['bound_by']}, "
+              f"{p['bound_ms'] / ms:.1%}), SDPA {lib:.6f} ms", flush=True)
+        if dn == "bfloat16":
+            perf["decode_attention_generic"] = p
+    return perf
+
+
+def o_layouts(err, device, gen, count):
+    """Path O: q, k and v of other layouts through the ops layer: copied
+    and counted, then one launch."""
+    import torch
+    from repro_torch.kernels.block_sparse_attn import kernel as BK
+    from repro_torch.kernels.block_sparse_attn import ops as BO
+    from repro_torch.kernels.block_sparse_attn.ops import block_lists
+    q = torch.randn((4, 256, 64), generator=gen, device=device)
+    k = torch.randn((2, 256 * 64 + 4), generator=gen, device=device)
+    k = k[:, 4:].view(2, 256, 64)          # rows past their width: strided
+    idx, cnt = block_lists(q, k, 2, mass=0.9, q_block=64, kv_block=64,
+                           causal=True)
+    c0 = BO.COPIES["block_sparse_attention"]
+    out, name = _one_launch(BK.LAUNCHES, lambda: BO.block_sparse_attention(
+        q.transpose(0, 1).contiguous().transpose(0, 1), k, k, idx, cnt,
+        q_block=64, kv_block=64, kv_group=2), "path O layouts")
+    count(name)
+    check(BO.COPIES["block_sparse_attention"] == c0 + 3,
+          "path O: the ops layer did not copy the three other layouts")
+    _compare_close(err, name, out, BK.block_sparse_attention_plain(
+        q, k, k, idx, cnt, q_block=64, kv_block=64, kv_group=2), "float32",
+        "path O transposed q, non-contiguous k/v through ops")
+
+
+def o_request(srv, seen, cid, device, count, *, seed=0, max_new=130):
+    """Path O: one sparkv request on path A's server decoding past the
+    tail buffer in one kv_dequant launch, then its streamed chunks
+    dequantized into fp16 caches in one launch, bit-equal to the plain
+    version."""
+    import torch
+    from repro_torch.kernels.kv_dequant import kernel as K
+    from repro_torch.kernels.kv_dequant import ops as KO
+    from repro_torch.models.transformer import DECODE_TAIL
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    st = srv.contexts[cid]
+    prompt = rng.integers(0, srv.model.cfg.vocab_size, size=4)
+    K.reset_launches()
+    seen.clear()
+    with NoPlain():
+        res = srv.generate(cid, prompt, max_new=max_new, policy="sparkv",
+                           compare_exact=False, seed=1)
+        torch.cuda.synchronize()
+    want = 1 if res.n_streamed else 0
+    check(dict(K.LAUNCHES) == {"kv_dequant": want, "kv_dequant_mixed": 0},
+          f"path O request: dequant launches {dict(K.LAUNCHES)}")
+    if want:
+        count("kv_dequant")
+    check(len(res.tokens) == max_new and len(prompt) + max_new > DECODE_TAIL,
+          "path O request: not past the tail buffer")
+    check(seen.get("finite") and seen["n_logits"] == max_new,
+          "path O request: non-finite logits")
+    print(f"[path O] sparkv request, prompt {len(prompt)} + {max_new} new "
+          f"tokens ({len(prompt) + max_new - DECODE_TAIL} past the "
+          f"{DECODE_TAIL}-slot tail): streamed {res.n_streamed}, launches "
+          f"{dict(K.LAUNCHES)}, {time.perf_counter() - t0:.1f} s wall (host "
+          f"clock; decode and Huffman decode on the host); tokens "
+          f"{res.tokens[:8].tolist()}...", flush=True)
+    chunks = sorted(seen["res"].engine.streamed_set)
+    qts = [q for c in chunks for q in st.encoded[c][2:]]
+    outs, batches = {}, {}
+    for run in ("kernel", "plain"):
+        dests = [torch.full(q.shape, SENTINEL, dtype=torch.float16,
+                            device=device) for q in qts]
+        b = batches[run] = KO.stage(qts, dests,
+                                    mixed=len({q.bits for q in qts}) > 1)
+        if run == "kernel":
+            _, name = _one_launch(K.LAUNCHES, lambda: K.dequant_batch(b),
+                                  "path O fp16 dequant")
+            count(name)
+        else:
+            K.dequant_batch_plain(b)
+        outs[run] = dests
+    torch.cuda.synchronize()
+    same = all(_bits_equal(a, b) for a, b in zip(outs["kernel"],
+                                                  outs["plain"]))
+    check(same, "path O: fp16 dequant differs from the plain version")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    ms = time_ms(lambda: K.dequant_batch(batches["kernel"]), flush)
+    plain_ms = time_ms(lambda: K.dequant_batch_plain(batches["plain"]),
+                       flush, n=10)
+    nbytes = _batch_bytes(qts, out_bytes=2)[0]
+    p = _perf(0.0, ms, plain_ms, None, nbytes, 0, BF16_FLOPS)
+    print(f"[path O] kv_dequant to fp16 over the request's {len(qts)} "
+          f"streamed chunk tensors: one launch, bit-equal={same}; kernel "
+          f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+          f"{p['bound_ms']:.6f} ms ({p['bound_by']}, "
+          f"{p['bound_ms'] / ms:.1%})", flush=True)
+
+
+def path_o(err, srv, seen, cid, device, *, seed=0, n_tokens=2048,
+           long_len=32000, max_new=130):
+    """Every shape, type and position the reference takes: the generic
+    kernels at the CPU test's shapes (tests/test_torch_kernel_shapes.py)
+    in fp32, bf16 and fp16, against their plain versions, each call one
+    launch of the kernel the shape test picks; fp16 on the tensor-core
+    kernels at Qwen3-4B's heads; the generic kernels timed at a full
+    width beside their bounds, plain versions and SDPA; the ops layer's
+    copy of other layouts; one serving request on path A's server decoding
+    past the 128-token tail buffer, its streamed chunks then dequantized
+    into fp16 in one launch, bit-equal to the plain version. Every kernel
+    call runs under NoPlain. Returns (launches by kernel on the path,
+    perf entries of the generic kernels)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    launches = {"block_sparse_attention": 0,
+                "block_sparse_attention_generic": 0, "decode_attention": 0,
+                "decode_attention_generic": 0, "kv_dequant": 0}
+
+    def count(name):
+        launches[name] = launches.get(name, 0) + 1
+        return name
+
+    o_generic_shapes(err, device, gen, count)
+    o_fp16(err, device, gen, count, n_tokens=n_tokens, long_len=long_len)
+    perf = o_generic_full_width(err, device, gen, count, n_tokens=n_tokens,
+                                long_len=long_len)
+    o_layouts(err, device, gen, count)
+    o_request(srv, seen, cid, device, count, seed=seed, max_new=max_new)
+    return launches, perf
 
 
 # ----------------------------------------------------------------------------
@@ -2620,6 +3014,29 @@ def main():
             perf[name]["max_abs_err"] = att_err[name]
         print(f"[path K] {time.perf_counter() - t0:.1f} s wall (host clock), "
               f"launches {k_launches}", flush=True)
+        from repro_torch.kernels.block_sparse_attn import kernel as BK
+        from repro_torch.kernels.block_sparse_attn import ops as BO
+        from repro_torch.kernels.decode_attn import kernel as DK
+        from repro_torch.kernels.decode_attn import ops as DO
+        check(BK.LAUNCHES["block_sparse_attention_generic"] == 0
+              and DK.LAUNCHES["decode_attention_generic"] == 0,
+              "paths C, D and K reached a generic kernel")
+        check(BO.COPIES["block_sparse_attention"] == 0
+              and DO.COPIES["decode_attention"] == 0,
+              "the attention ops copied an input on the main path")
+        # path O: every shape, type and position the reference takes
+        t0 = time.perf_counter()
+        o_launches, o_perf = path_o(att_err, kept["server"], kept["seen"],
+                                    kept["cid"], device)
+        for name, n in o_launches.items():
+            launches[name] += n
+        perf.update(o_perf)
+        for name in ("block_sparse_attention", "decode_attention",
+                     "block_sparse_attention_generic",
+                     "decode_attention_generic"):
+            perf[name]["max_abs_err"] = att_err[name]
+        print(f"[path O] {time.perf_counter() - t0:.1f} s wall (host clock), "
+              f"launches {o_launches}", flush=True)
 
         # path E1: serve_fleet on path A's server, then one load_context a
         # streaming policy the fleet admitted

@@ -12,12 +12,18 @@
 // on the H100 the floor is the arithmetic, 989 TFLOP/s in bf16 on the
 // tensor cores.
 //
-// Two kernels, dispatched on the inputs' dtype (not a fallback: each
-// dtype has exactly one kernel, and a failed launch raises):
+// Three kernels. The wrapper (kernel.py::_fast) picks one by shape and
+// dtype before the launch; none stands in for another, and a failed
+// launch raises. The fast kernels take head sizes 64, 80, 128 and 256
+// and blocks that are multiples of 16: bf16 and fp16 on the tensor cores
+// (bsa_tc_kernel), fp32 on the CUDA cores (block_sparse_attn_kernel).
+// The generic kernel (bsa_generic_kernel, at the end) takes every other
+// shape the reference takes, in all three types.
 //
-// Block sizes: q_block and kv_block are any multiples of 16 (the m16 of
-// mma.sync). A CTA takes rows of one q-block: the most of 128 (bf16 only),
-// 64, 32 or 16 that divides q_block (96 -> 32, 48 -> 16). K and V come in
+// Block sizes (the fast kernels): q_block and kv_block are any multiples
+// of 16 (the m16 of mma.sync). A CTA takes rows of one q-block: the most
+// of 128 (bf16 and fp16 only), 64, 32 or 16 that divides q_block (96 ->
+// 32, 48 -> 16). K and V come in
 // 64-row sub-tiles of four 16-row segments, each the next 16 listed rows
 // in list order (next_subtile): a kv_block of 64 or 128 gives whole
 // sub-tiles of one block, 16 or 32 several blocks a sub-tile, 96 a
@@ -27,7 +33,9 @@
 // is a multiple of 64 every sub-tile is 64 rows of one block, and the
 // kernel keeps only its first row, as before blocks of 16 were taken.
 //
-// bf16 -> bsa_tc_kernel, the tensor cores (FlashAttention-2's design). A CTA of
+// bf16, fp16 -> bsa_tc_kernel<T>, the tensor cores (FlashAttention-2's
+// design; mma.sync m16n8k16 has one shape and fragment layout for both
+// types, so the element type is a template). A CTA of
 // NW warps (1, 2, 4 or 8) takes 16 * NW query rows, each warp 16 rows. Head
 // sizes 64, 80, 128 and 256. Up to d = 128, Q is copied once and held as mma A
 // fragments in registers (ldmatrix.x4), and K and V come in 64-row sub-tiles by
@@ -40,14 +48,14 @@
 // XOR-swizzled by (row % 8) (d 64, 128, 256), or a row of d = 80 is padded to
 // 11 chunks (mma_sm90.cuh, tile_pitch), so ldmatrix reads 8 rows without bank
 // conflicts; d = 80's fifth k-step reads K by ldmatrix.x2. S = Q K^T and O += P
-// V run as mma.sync.m16n8k16 bf16 x bf16 -> fp32 (K read by ldmatrix as the
+// V run as mma.sync.m16n8k16 T x T -> fp32 (K read by ldmatrix as the
 // column-major B, V by ldmatrix.trans). The online softmax stays in registers:
 // a lane holds rows lane/4 and lane/4 + 8 and columns 2 * (lane % 4) + {0, 1}
 // of each 8-column tile, so the row max reduces over the 4 lanes of a quad; the
-// fp32 S accumulators are packed into bf16 A fragments for P V without a trip
-// through shared memory. That packing rounds p to bf16 exactly as the Pallas
-// kernel's p.astype(v.dtype), and bf16 x bf16 products are exact in fp32, so
-// the kernel computes the Pallas function up to the order of the sums. The grid
+// fp32 S accumulators are packed into T A fragments for P V without a trip
+// through shared memory. That packing rounds p to T exactly as the Pallas
+// kernel's p.astype(v.dtype), and T x T products are exact in fp32, so the
+// kernel computes the Pallas function up to the order of the sums. The grid
 // is (bh, row-blocks) with the row-block index reversed, so under the causal
 // mask the heaviest q-blocks (qb + 1 tiles) start first.
 //
@@ -60,7 +68,7 @@
 // shared memory, then V over the K buffer and O += P V. At d = 80 a
 // thread's 5 output columns are one float4 group and one scalar.
 //
-// Both kernels read their own list (the TPU's scalar prefetch has no
+// The fast kernels read their own list (the TPU's scalar prefetch has no
 // counterpart): entries past block_cnt, or outside [0, skv / kv_block),
 // are never read, and segments that the causal mask hides from all of a
 // CTA's rows are skipped (the tensor-core kernel also skips a warp's
@@ -92,9 +100,9 @@ constexpr int NSEG = TC_BN / SEG;
 
 // rows x D from global (row stride D) into a tile of pitch tile_pitch<D>,
 // by cp.async
-template <int D, int NT>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int rows, int tid) {
+template <int D, int NT, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int rows,
+                                          int tid) {
   constexpr int CH = D / 8;
   for (int i = tid; i < rows * CH; i += NT) {
     const int r = i / CH, ch = i % CH;
@@ -168,8 +176,8 @@ __device__ __forceinline__ int pick(const int (&seg)[NSEG], int i) {
 
 // A sub-tile's TC_BN rows (segment i: 16 rows from kv row seg[i], zeros
 // where seg[i] < 0) into a tile of pitch tile_pitch<D>, by cp.async
-template <int D, int NT>
-__device__ __forceinline__ void load_subtile(bf16* dst, const bf16* src,
+template <int D, int NT, typename T>
+__device__ __forceinline__ void load_subtile(T* dst, const T* src,
                                              const int (&seg)[NSEG],
                                              int tid) {
   constexpr int CH = D / 8;
@@ -193,7 +201,7 @@ struct TcShape {
   static constexpr int kStages = kQRegs ? 3 : 2;
   static constexpr int kPitch = tile_pitch<D>();
   static constexpr int kStage = 2 * TC_BN * kPitch;  // K, then V
-  // bf16 elements of shared memory at BM query rows a CTA
+  // 16-bit elements of shared memory at BM query rows a CTA
   __host__ __device__ static constexpr int elems(int bm) {
     return kStages * kStage + (kQRegs ? 0 : bm * kPitch);
   }
@@ -212,12 +220,12 @@ struct TcShape {
 // SEGS: kv_block is not a multiple of TC_BN, and sub-tiles are gathered
 // from 16-row segments; else each sub-tile is TC_BN rows of one block,
 // kept in registers as its first kv row.
-template <int D, int NW, bool SEGS>
+template <typename T, int D, int NW, bool SEGS>
 __global__ void __launch_bounds__(NW * 32, (NW == 4 && D <= 128) ? 2 : 1)
-bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v,
+bsa_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v,
               const int32_t* __restrict__ block_idx,
-              const int32_t* __restrict__ block_cnt, bf16* __restrict__ o,
+              const int32_t* __restrict__ block_cnt, T* __restrict__ o,
               int sq, int skv, int n_qb, int max_nnz, int q_block,
               int kv_block, int kv_group, int causal, float scale_log2) {
   using S = TcShape<D>;
@@ -226,7 +234,7 @@ bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   static_assert(!S::kQRegs || BM * S::kPitch <= STAGE,
                 "Q must fit in one stage");
   extern __shared__ float4 smem4[];
-  bf16* ring = reinterpret_cast<bf16*>(smem4);
+  T* ring = reinterpret_cast<T*>(smem4);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x;
@@ -236,8 +244,8 @@ bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int wrow0 = row0 + warp * 16;  // this warp's first query row
   const int row_last = row0 + BM - 1;
   const size_t kv_off = (size_t)(bh / kv_group) * skv * D;
-  const bf16* kp = k + kv_off;
-  const bf16* vp = v + kv_off;
+  const T* kp = k + kv_off;
+  const T* vp = v + kv_off;
   const int32_t* list = block_idx + ((size_t)bh * n_qb + qb) * max_nnz;
   const int n_list = min(block_cnt[(size_t)bh * n_qb + qb], max_nnz);
   // segs[st * NSEG + i]: the first kv row of segment i in stage st
@@ -248,8 +256,8 @@ bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // (-1 past the list's end). Every thread walks the list alike; with
   // SEGS the first NSEG threads write the sub-tile's segments.
   auto issue = [&](int st) {
-    bf16* kd = ring + st * STAGE;
-    bf16* vd = kd + TC_BN * S::kPitch;
+    T* kd = ring + st * STAGE;
+    T* vd = kd + TC_BN * S::kPitch;
     if constexpr (!SEGS) {
       const int kv = next_rows<TC_BN>(list, n_list, n_kb, kv_block, causal,
                                       row_last, ct, cs);
@@ -277,7 +285,7 @@ bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // prologue: Q, then the first NS - 1 sub-tiles into the first stages;
   // pend holds their first kv rows in order (-1 past the list's end)
-  bf16* qs = ring + (S::kQRegs ? (NS - 1) * STAGE : NS * STAGE);
+  T* qs = ring + (S::kQRegs ? (NS - 1) * STAGE : NS * STAGE);
   load_tile<D, NT>(qs, q + ((size_t)bh * sq + row0) * D, BM, tid);
   cp_async_commit();
   int pend[NS - 1];
@@ -337,8 +345,8 @@ bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     if (!causal || lo <= wrow0 + 15) {
-      const bf16* ks = ring + st * STAGE;
-      const bf16* vs = ks + TC_BN * S::kPitch;
+      const T* ks = ring + st * STAGE;
+      const T* vs = ks + TC_BN * S::kPitch;
       float s[TC_BN / 8][4];
 #pragma unroll
       for (int j = 0; j < TC_BN / 8; ++j)
@@ -366,14 +374,14 @@ bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             uint32_t b[4];
             ldsm_x4(ks + swz<D>(8 * j + (lane & 7), 2 * kk + (lane >> 3)),
                     b);
-            mma_bf16(s[j], qf[0], b[0], b[1]);
-            mma_bf16(s[j], qf[1], b[2], b[3]);
+            mma16816<T>(s[j], qf[0], b[0], b[1]);
+            mma16816<T>(s[j], qf[1], b[2], b[3]);
           } else {
             uint32_t b[2];
             ldsm_x2(ks + swz<D>(8 * j + (lane & 7),
                                 2 * kk + ((lane >> 3) & 1)),
                     b);
-            mma_bf16(s[j], qf[0], b[0], b[1]);
+            mma16816<T>(s[j], qf[0], b[0], b[1]);
           }
         }
       }
@@ -435,18 +443,18 @@ bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 #pragma unroll
       for (int kt = 0; kt < TC_BN / 16; ++kt) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]),
-                                pack_bf16(s[2 * kt][2], s[2 * kt][3]),
-                                pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-                                pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
+        const uint32_t pa[4] = {pack2<T>(s[2 * kt][0], s[2 * kt][1]),
+                                pack2<T>(s[2 * kt][2], s[2 * kt][3]),
+                                pack2<T>(s[2 * kt + 1][0], s[2 * kt + 1][1]),
+                                pack2<T>(s[2 * kt + 1][2], s[2 * kt + 1][3])};
 #pragma unroll
         for (int j = 0; j < NO; j += 2) {
           uint32_t b[4];
           ldsm_x4_t(vs + swz<D>(16 * kt + (lane & 7) + ((lane >> 3) & 1) * 8,
                                 j + (lane >> 4)),
                     b);
-          mma_bf16(acc[j], pa, b[0], b[1]);
-          mma_bf16(acc[j + 1], pa, b[2], b[3]);
+          mma16816<T>(acc[j], pa, b[0], b[1]);
+          mma16816<T>(acc[j + 1], pa, b[2], b[3]);
         }
       }
     }
@@ -457,32 +465,32 @@ bsa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l0 += __shfl_xor_sync(0xffffffffu, l0, w);
     l1 += __shfl_xor_sync(0xffffffffu, l1, w);
   }
-  bf16* op = o + ((size_t)bh * sq + r0) * D + cq;
+  T* op = o + ((size_t)bh * sq + r0) * D + cq;
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
-    *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+    *reinterpret_cast<uint32_t*>(op + 8 * j) = pack2<T>(
         l0 > 0.f ? acc[j][0] / l0 : 0.f, l0 > 0.f ? acc[j][1] / l0 : 0.f);
-    *reinterpret_cast<__nv_bfloat162*>(op + 8 * D + 8 * j) =
-        __floats2bfloat162_rn(l1 > 0.f ? acc[j][2] / l1 : 0.f,
-                              l1 > 0.f ? acc[j][3] / l1 : 0.f);
+    *reinterpret_cast<uint32_t*>(op + 8 * D + 8 * j) =
+        pack2<T>(l1 > 0.f ? acc[j][2] / l1 : 0.f,
+                 l1 > 0.f ? acc[j][3] / l1 : 0.f);
   }
 }
 
-template <int D, int NW, bool SEGS>
+template <typename T, int D, int NW, bool SEGS>
 int launch_tc(const void* q, const void* k, const void* v, const void* idx,
               const void* cnt, void* o, int bh, int sq, int skv, int n_qb,
               int max_nnz, int q_block, int kv_block, int kv_group,
               int causal, float scale, cudaStream_t stream) {
   const size_t smem = TcShape<D>::bytes(NW * 16, SEGS);
-  auto kern = bsa_tc_kernel<D, NW, SEGS>;
+  auto kern = bsa_tc_kernel<T, D, NW, SEGS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, sq / (NW * 16));
   kern<<<grid, NW * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int32_t*>(idx),
-      static_cast<const int32_t*>(cnt), static_cast<bf16*>(o), sq, skv, n_qb,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int32_t*>(idx),
+      static_cast<const int32_t*>(cnt), static_cast<T*>(o), sq, skv, n_qb,
       max_nnz, q_block, kv_block, kv_group, causal,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
@@ -497,7 +505,8 @@ constexpr int LDK = BN + 4;    // row stride of the transposed K tile (floats)
 
 // q: (bh, sq, D); k/v: (bh / kv_group, skv, D); o: (bh, sq, D).
 // block_idx: (bh, n_qb, max_nnz) i32; block_cnt: (bh, n_qb) i32.
-// Grid: (sq / BM, bh), BM rows of one q-block (64, 32 or 16); block
+// Grid: bh * (sq / BM) on x, row block fastest (bh past 65535 fits), BM
+// rows of one q-block (64, 32 or 16); block
 // 4 * BM threads, 16 a row group: ty picks 4 rows, tx 4 columns. Shared:
 // qT[D][BM + 4], kv[max(D * LDK, BN * D)], pT[BN][BM + 4]: 87 KB at d = 128
 // and BM = 64, two CTAs an SM; 157 KB at d = 256, one.
@@ -527,8 +536,9 @@ block_sparse_attn_kernel(const float* __restrict__ q,
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * BM;  // first query row of this CTA
+  const int n_rb = sq / BM;
+  const int bh = blockIdx.x / n_rb;
+  const int row0 = (blockIdx.x - bh * n_rb) * BM;  // this CTA's first row
   const int qb = row0 / q_block;
   const int n_kb = skv / kv_block;
 
@@ -702,7 +712,7 @@ int launch_fp32(const void* q, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(sq / BM, bh);
+  const unsigned grid = (unsigned)bh * (unsigned)(sq / BM);
   kern<<<grid, 4 * BM, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int32_t*>(idx),
@@ -711,22 +721,116 @@ int launch_fp32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Any head size, block size and float type on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int GEN_WARPS = 4;              // query rows a CTA, a warp each
+constexpr int GEN_KEYS = 8;               // keys a warp takes at a time
+constexpr long long kMaxGrid = 1 << 20;   // CTAs; the grid strides past it
+
+// One warp a query row: rows in (bh, row) order, GEN_WARPS a CTA, the grid
+// striding over them. Lane l owns columns l, l + 32, ... of the row's q and
+// fp32 accumulator, which live in dynamic shared memory ([GEN_WARPS][2][d]
+// floats; each lane reads and writes only its own columns, so no barrier
+// is needed). The warp walks its q-block's list in list order, skipping
+// entries outside [0, skv / kv_block), and each listed block up to the
+// row's own position under the causal mask, GEN_KEYS keys at a time
+// (mma_sm90.cuh, softmax_keys): the dot products over the lanes' columns,
+// reduced by shuffles, the online softmax in fp32, p rounded to the
+// element type for the PV product (the Pallas kernel's p.astype(v.dtype))
+// while l sums the unrounded p; the output is rounded to the element type
+// at the store. Bound by the latency of each group of keys and the fp32
+// FMA rate, not by bytes: the kernel for the shapes that bsa_tc_kernel and
+// block_sparse_attn_kernel do not take.
+template <typename T>
+__global__ void __launch_bounds__(GEN_WARPS * 32)
+bsa_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v,
+                   const int32_t* __restrict__ block_idx,
+                   const int32_t* __restrict__ block_cnt, T* __restrict__ o,
+                   int bh_total, int sq, int skv, int d, int n_qb,
+                   int max_nnz, int q_block, int kv_block, int kv_group,
+                   int causal, float scale_log2) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* qs = reinterpret_cast<float*>(smem4) + (size_t)warp * 2 * d;
+  float* acc = qs + d;
+  const int n_kb = skv / kv_block;
+  const long long n_rows = (long long)bh_total * sq;
+  for (long long r = (long long)blockIdx.x * GEN_WARPS + warp; r < n_rows;
+       r += (long long)gridDim.x * GEN_WARPS) {
+    const int bh = (int)(r / sq);
+    const int row = (int)(r - (long long)bh * sq);
+    const int qb = row / q_block;
+    const T* qp = q + (size_t)r * d;
+    for (int c = lane; c < d; c += 32) {
+      qs[c] = to_f32(qp[c]);
+      acc[c] = 0.f;
+    }
+    const size_t kv_off = (size_t)(bh / kv_group) * skv * d;
+    const T* kp = k + kv_off;
+    const T* vp = v + kv_off;
+    const int32_t* list = block_idx + ((size_t)bh * n_qb + qb) * max_nnz;
+    const int n_list = min(block_cnt[(size_t)bh * n_qb + qb], max_nnz);
+    float m = -INFINITY, l = 0.f;
+    for (int t = 0; t < n_list; ++t) {
+      const int kb = __ldg(list + t);
+      if (kb < 0 || kb >= n_kb) continue;
+      const int j0 = kb * kv_block;
+      const int j1 = causal ? min(j0 + kv_block, row + 1) : j0 + kv_block;
+      for (int j = j0; j < j1; j += GEN_KEYS)
+        softmax_keys<GEN_KEYS>(qs, acc, kp + (size_t)j * d,
+                               vp + (size_t)j * d, (size_t)d,
+                               min(GEN_KEYS, j1 - j), d, lane, scale_log2,
+                               m, l);
+    }
+    T* op = o + (size_t)r * d;
+    for (int c = lane; c < d; c += 32)
+      op[c] = from_f32<T>(l > 0.f ? acc[c] / l : 0.f);
+  }
+}
+
+template <typename T>
+int launch_generic(const void* q, const void* k, const void* v,
+                   const void* idx, const void* cnt, void* o, int bh, int sq,
+                   int skv, int d, int n_qb, int max_nnz, int q_block,
+                   int kv_block, int kv_group, int causal, float scale,
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 2 * GEN_WARPS * (size_t)d;
+  auto kern = bsa_generic_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long want = ((long long)bh * sq + GEN_WARPS - 1) / GEN_WARPS;
+  const int grid = (int)(want < kMaxGrid ? want : kMaxGrid);
+  kern<<<grid, GEN_WARPS * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int32_t*>(idx),
+      static_cast<const int32_t*>(cnt), static_cast<T*>(o), bh, sq, skv, d,
+      n_qb, max_nnz, q_block, kv_block, kv_group, causal,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns a CUDA error code; 1 (cudaErrorInvalidValue) for a head size
-// other than 64, 80, 128 or 256, or rows a CTA other than 16, 32, 64 or
-// 128 (bf16) and 16, 32 or 64 (fp32). The wrapper has checked shapes and
-// divisibility: sq % q_block == 0, q_block % rows == 0, kv_block % 16 ==
-// 0, skv % kv_block == 0.
+// dtype: 0 fp32, 1 bf16, 2 fp16. Returns a CUDA error code; 1
+// (cudaErrorInvalidValue) for a head size other than 64, 80, 128 or 256,
+// or rows a CTA other than 16, 32, 64 or 128 (bf16, fp16) and 16, 32 or 64
+// (fp32). The wrapper has checked shapes and divisibility: sq % q_block ==
+// 0, q_block % rows == 0, kv_block % 16 == 0, skv % kv_block == 0, and
+// the grid: sq / rows <= 65535 (bf16, fp16), bh * sq / rows < 2^31
+// (fp32).
 int block_sparse_attention_launch(const void* q, const void* k,
                                   const void* v, const void* block_idx,
                                   const void* block_cnt, void* o, int bh,
                                   int sq, int skv, int d, int n_qb,
                                   int max_nnz, int q_block, int kv_block,
                                   int kv_group, int causal, float scale,
-                                  int is_bf16, int rows, void* stream) {
+                                  int dtype, int rows, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (sq == 0 || bh == 0) return (int)cudaGetLastError();
   // kv blocks that are not whole sub-tiles take the segmented walk
@@ -734,25 +838,50 @@ int block_sparse_attention_launch(const void* q, const void* k,
 #define BSA_ARGS                                                            \
   q, k, v, block_idx, block_cnt, o, bh, sq, skv, n_qb, max_nnz, q_block,    \
       kv_block, kv_group, causal, scale, s
+#define BSA_TC(T, DD)                                                        \
+  if (rows == 16) return launch_tc<T, DD, 1, true>(BSA_ARGS);                \
+  if (rows == 32) return launch_tc<T, DD, 2, true>(BSA_ARGS);                \
+  if (rows == 64 && segs) return launch_tc<T, DD, 4, true>(BSA_ARGS);        \
+  if (rows == 64) return launch_tc<T, DD, 4, false>(BSA_ARGS);               \
+  if (rows == 128 && segs) return launch_tc<T, DD, 8, true>(BSA_ARGS);       \
+  if (rows == 128) return launch_tc<T, DD, 8, false>(BSA_ARGS);
 #define BSA_D(DD)                                                            \
-  if (d == DD && !is_bf16) {                                                 \
+  if (d == DD && dtype == 0) {                                               \
     if (rows == 16) return launch_fp32<DD, 16, true>(BSA_ARGS);              \
     if (rows == 32) return launch_fp32<DD, 32, true>(BSA_ARGS);              \
     if (rows == 64 && segs) return launch_fp32<DD, 64, true>(BSA_ARGS);      \
     if (rows == 64) return launch_fp32<DD, 64, false>(BSA_ARGS);             \
   }                                                                          \
-  if (d == DD && is_bf16) {                                                  \
-    if (rows == 16) return launch_tc<DD, 1, true>(BSA_ARGS);                 \
-    if (rows == 32) return launch_tc<DD, 2, true>(BSA_ARGS);                 \
-    if (rows == 64 && segs) return launch_tc<DD, 4, true>(BSA_ARGS);         \
-    if (rows == 64) return launch_tc<DD, 4, false>(BSA_ARGS);                \
-    if (rows == 128 && segs) return launch_tc<DD, 8, true>(BSA_ARGS);        \
-    if (rows == 128) return launch_tc<DD, 8, false>(BSA_ARGS);               \
-  }
+  if (d == DD && dtype == 1) { BSA_TC(bf16, DD) }                            \
+  if (d == DD && dtype == 2) { BSA_TC(f16, DD) }
   BSA_D(64) BSA_D(80) BSA_D(128) BSA_D(256)
 #undef BSA_D
+#undef BSA_TC
 #undef BSA_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// The generic kernel (bsa_generic_kernel): any d >= 1 whose 2 * 4 * d
+// floats of shared memory a CTA can hold, any q_block and kv_block, dtype
+// 0 fp32, 1 bf16, 2 fp16. The wrapper has checked sq % q_block == 0 and
+// skv % kv_block == 0.
+int block_sparse_attention_generic_launch(
+    const void* q, const void* k, const void* v, const void* block_idx,
+    const void* block_cnt, void* o, int bh, int sq, int skv, int d, int n_qb,
+    int max_nnz, int q_block, int kv_block, int kv_group, int causal,
+    float scale, int dtype, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (sq == 0 || bh == 0) return (int)cudaGetLastError();
+#define BSA_ARGS                                                            \
+  q, k, v, block_idx, block_cnt, o, bh, sq, skv, d, n_qb, max_nnz, q_block, \
+      kv_block, kv_group, causal, scale, s
+  switch (dtype) {
+    case 0: return launch_generic<float>(BSA_ARGS);
+    case 1: return launch_generic<bf16>(BSA_ARGS);
+    case 2: return launch_generic<f16>(BSA_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BSA_ARGS
 }
 
 }  // extern "C"

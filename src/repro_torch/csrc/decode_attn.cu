@@ -31,15 +31,21 @@
 //   q, k, v and the output, and no state outlives the launch; kv_len 0
 //   is one CTA that writes zeros.
 //
-// Two kernels, dispatched on the inputs' dtype (each dtype has exactly
-// one; a failed launch raises):
-// - bf16 -> decode_tc_kernel, the tensor cores. The g query heads are the
-//   rows of an mma.sync m16n8k16 A operand (padded to 16 with zeros, held
-//   in registers), each warp takes 16 keys of a 64-key stage: S = q K^T
+// Three kernels. The wrapper (kernel.py::_fast) picks one by shape and
+// dtype before the launch; none stands in for another, and a failed
+// launch raises. The fast kernels take head sizes 32, 64, 80, 128 and
+// 256, 1 to 16 query heads a kv head, and b and hkv under 65536; the
+// generic kernel (decode_generic_kernel, at the end) every other shape
+// the reference takes, in fp32, bf16 and fp16, on the same split.
+// - bf16, fp16 -> decode_tc_kernel<T>, the tensor cores (the fp16
+//   mma.sync has the bf16 one's shape and fragments). The g query heads
+//   are the rows of an mma.sync m16n8k16 A operand (padded to 16 with
+//   zeros, held in registers), each warp takes 16 keys of a 64-key
+//   stage: S = q K^T
 //   with K read by ldmatrix, the online softmax on the fp32 accumulators,
-//   p packed to bf16 A fragments (the Pallas kernel's p.astype(v.dtype);
+//   p packed to T A fragments (the Pallas kernel's p.astype(v.dtype);
 //   l sums the unrounded p), O += P V with V read by ldmatrix.trans.
-//   bf16 x bf16 products are exact in fp32, so this is the Pallas
+//   T x T products are exact in fp32, so this is the Pallas
 //   function up to the order of the sums, at a few instructions a key.
 //   g is a run-time value, any of 1..16. At d = 80 a K/V row in shared
 //   memory is padded to 11 16-byte chunks (mma_sm90.cuh, tile_pitch) and
@@ -81,10 +87,14 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;       // cp.async ring depth
 constexpr int kMaxCluster = 16;  // splits of a (batch, kv head), non-portable
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kGenKeys = 8;      // keys a warp of the generic kernel takes
 
 __device__ __forceinline__ void store(float* o, float x) { *o = x; }
 __device__ __forceinline__ void store(bf16* o, float x) {
   *o = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store(f16* o, float x) {
+  *o = __float2half_rn(x);
 }
 __device__ __forceinline__ float exp2_or_0(float x, float m) {
   return x == -INFINITY ? 0.f : exp2f(x - m);
@@ -164,11 +174,12 @@ constexpr int TC_KEYS = 64;  // keys a stage, 16 a warp
 
 // Grid: (n_split, hkv, b), clusters of (n_split, 1, 1); block kThreads;
 // g <= 16. Dynamic shared: kStages stages of K [TC_KEYS][D] and V
-// [TC_KEYS][D], bf16, swizzled; after the loop the partials of finish().
-template <int D>
+// [TC_KEYS][D], T (bf16 or fp16), swizzled; after the loop the partials of
+// finish().
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int skv,
+decode_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out, int skv,
                  int hq, int hkv, int g, int kv_len, int chunk,
                  float scale_log2) {
   constexpr int KS = D / 16, NO = D / 8, CH = D / 8;
@@ -177,7 +188,7 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // 160 KB a CTA, clusters of 16 do not all find room at once)
   constexpr int STAGE = 2 * TC_KEYS * P, NS = kStages;
   extern __shared__ float4 smem4[];
-  bf16* ring = reinterpret_cast<bf16*>(smem4);
+  T* ring = reinterpret_cast<T*>(smem4);
   float* wm = reinterpret_cast<float*>(smem4);
   float* wl = wm + kWarps * g;
   float* wacc = wl + kWarps * g;
@@ -188,10 +199,10 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n = max(0, min(chunk, kv_len - t0));  // valid keys here
   const int n_st = (n + TC_KEYS - 1) / TC_KEYS;
   const size_t row_stride = (size_t)hkv * D;
-  const bf16* kp = k + ((size_t)bi * skv + t0) * row_stride + (size_t)hi * D;
-  const bf16* vp = v + ((size_t)bi * skv + t0) * row_stride + (size_t)hi * D;
+  const T* kp = k + ((size_t)bi * skv + t0) * row_stride + (size_t)hi * D;
+  const T* vp = v + ((size_t)bi * skv + t0) * row_stride + (size_t)hi * D;
   auto load = [&](int st, int it) {  // keys it * TC_KEYS ... into stage st
-    bf16* ks = ring + st * STAGE;
+    T* ks = ring + st * STAGE;
     for (int i = tid; i < TC_KEYS * CH; i += kThreads) {
       const int r = i / CH, c = i % CH, t = it * TC_KEYS + r;
       const size_t off = t < n ? (size_t)t * row_stride + c * 8 : 0;
@@ -207,7 +218,7 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // q as A fragments: rows are the g heads, zero past g
   const int r0 = lane >> 2, cq = 2 * (lane & 3);
-  const bf16* qp = q + ((size_t)bi * hq + (size_t)hi * g) * D;
+  const T* qp = q + ((size_t)bi * hq + (size_t)hi * g) * D;
   auto q2 = [&](int row, int col) -> uint32_t {
     return row < g ? *reinterpret_cast<const uint32_t*>(qp + row * D + col)
                    : 0u;
@@ -236,8 +247,8 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     const int key0 = it * TC_KEYS + warp * 16;  // this warp's 16 keys
     if (key0 >= n) continue;
-    const bf16* ks = ring + (it % NS) * STAGE;
-    const bf16* vs = ks + TC_KEYS * P;
+    const T* ks = ring + (it % NS) * STAGE;
+    const T* vs = ks + TC_KEYS * P;
 
     // two k-steps a K ldmatrix.x4; the last of an odd count (d = 80) from
     // an .x2
@@ -251,14 +262,14 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           ldsm_x4(ks + swz<D>(warp * 16 + 8 * j + (lane & 7),
                               2 * kk + (lane >> 3)),
                   b);
-          mma_bf16(s[j], qa[kk], b[0], b[1]);
-          mma_bf16(s[j], qa[kk + 1 < KS ? kk + 1 : kk], b[2], b[3]);
+          mma16816<T>(s[j], qa[kk], b[0], b[1]);
+          mma16816<T>(s[j], qa[kk + 1 < KS ? kk + 1 : kk], b[2], b[3]);
         } else {
           uint32_t b[2];
           ldsm_x2(ks + swz<D>(warp * 16 + 8 * j + (lane & 7),
                               2 * kk + ((lane >> 3) & 1)),
                   b);
-          mma_bf16(s[j], qa[kk], b[0], b[1]);
+          mma16816<T>(s[j], qa[kk], b[0], b[1]);
         }
       }
     }
@@ -303,18 +314,18 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         acc[j][3] *= c1;
       }
     }
-    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
-                            pack_bf16(s[0][2], s[0][3]),
-                            pack_bf16(s[1][0], s[1][1]),
-                            pack_bf16(s[1][2], s[1][3])};
+    const uint32_t pa[4] = {pack2<T>(s[0][0], s[0][1]),
+                            pack2<T>(s[0][2], s[0][3]),
+                            pack2<T>(s[1][0], s[1][1]),
+                            pack2<T>(s[1][2], s[1][3])};
 #pragma unroll
     for (int j = 0; j < NO; j += 2) {
       uint32_t b[4];
       ldsm_x4_t(vs + swz<D>(warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
                             j + (lane >> 4)),
                 b);
-      mma_bf16(acc[j], pa, b[0], b[1]);
-      mma_bf16(acc[j + 1], pa, b[2], b[3]);
+      mma16816<T>(acc[j], pa, b[0], b[1]);
+      mma16816<T>(acc[j + 1], pa, b[2], b[3]);
     }
   }
   cp_async_wait<0>();
@@ -347,7 +358,7 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   __syncthreads();
-  finish<bf16, D>(wm, wl, wacc, g, out, (size_t)bi * hq + (size_t)hi * g);
+  finish<T, D>(wm, wl, wacc, g, out, (size_t)bi * hq + (size_t)hi * g);
 }
 
 // ---------------------------------------------------------------------------
@@ -551,9 +562,9 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   finish<float, D>(wm, wl, wacc, g, out, (size_t)bi * hq + (size_t)hi * g);
 }
 
-// Launch `kern` on grid (n_split, hkv, b) in clusters of (n_split, 1, 1).
+// Launch `kern` on grid (n_split, gy, gz) in clusters of (n_split, 1, 1).
 template <auto kern, typename... Args>
-int launch_clusters(size_t smem, int n_split, int hkv, int b,
+int launch_clusters(size_t smem, int n_split, int gy, int gz,
                     cudaStream_t stream, Args... args) {
   static bool configured = false;  // once a kernel: the most it may ask for
   if (!configured) {
@@ -566,7 +577,7 @@ int launch_clusters(size_t smem, int n_split, int hkv, int b,
     configured = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_split, hkv, b);
+  cfg.gridDim = dim3(n_split, gy, gz);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -587,18 +598,18 @@ size_t partial_bytes(int g, int d) {
   return sizeof(float) * ((size_t)kWarps * g * (d + 2) + (size_t)2 * g);
 }
 
-template <int D>
+template <typename T, int D>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
               int skv, int hq, int hkv, int kv_len, int chunk, int n_split,
               float scale, cudaStream_t stream) {
   const int g = hq / hkv;
   const size_t ring =
-      sizeof(bf16) * (size_t)kStages * 2 * TC_KEYS * tile_pitch<D>();
+      sizeof(T) * (size_t)kStages * 2 * TC_KEYS * tile_pitch<D>();
   const size_t part = partial_bytes(g, D);
-  return launch_clusters<decode_tc_kernel<D>>(
+  return launch_clusters<decode_tc_kernel<T, D>>(
       ring > part ? ring : part, n_split, hkv, b, stream,
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), skv, hq, hkv, g,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), skv, hq, hkv, g,
       kv_len, chunk, scale * kLog2e);
 }
 
@@ -634,18 +645,127 @@ int launch_fp32_g(int g, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// Any head size, group and float type on the CUDA cores
+// ---------------------------------------------------------------------------
+
+// A CTA takes kWarps query heads of one (batch, kv head), a warp a head,
+// over one split's keys. Lane l owns columns l, l + 32, ... of its head's
+// q and fp32 accumulator, in dynamic shared memory (each lane reads and
+// writes only its own columns until the combine). The warp walks its
+// split's keys kGenKeys at a time (mma_sm90.cuh, softmax_keys): the dot
+// products over the lanes' columns, reduced by shuffles, the online
+// softmax in fp32, p rounded to the element type for the PV product while
+// l sums the unrounded p. The splits of a (batch, kv head, head group)
+// are one cluster and combine through distributed shared memory as in
+// finish(); the output is rounded to the element type at the store. Bound
+// by the latency of each group of keys, not bytes: the kernel for the
+// shapes the others do not take.
+//
+// Grid: (n_split, gy, gz) with gy * gz >= n_items = b * hkv * n_hg items
+// (batch, kv head, head group), in that order with the head group
+// fastest; clusters of (n_split, 1, 1). Dynamic shared: q [kWarps][d],
+// acc [kWarps][d], m [kWarps], l [kWarps] floats.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out, int skv,
+                      int hq, int hkv, int d, int g, int n_hg,
+                      long long n_items, int kv_len, int chunk,
+                      float scale_log2) {
+  extern __shared__ float4 smem4[];
+  float* base = reinterpret_cast<float*>(smem4);
+  const long long item = blockIdx.y + (long long)gridDim.y * blockIdx.z;
+  if (item >= n_items) return;  // the whole cluster leaves together
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hg = (int)(item % n_hg);
+  const long long pair = item / n_hg;
+  const int hi = (int)(pair % hkv);
+  const long long bi = pair / hkv;
+  const int h0 = hg * kWarps;                 // the group's first head
+  const int hn = min(kWarps, g - h0);         // its heads
+  float* qs = base + (size_t)warp * d;
+  float* acc = base + (size_t)(kWarps + warp) * d;
+  float* cm = base + (size_t)2 * kWarps * d;  // m [kWarps], then l
+  float* cl = cm + kWarps;
+  const size_t head0 = (size_t)bi * hq + (size_t)hi * g + h0;
+
+  float m = -INFINITY, l = 0.f;
+  if (warp < hn) {
+    const T* qp = q + (head0 + warp) * d;
+    for (int c = lane; c < d; c += 32) {
+      qs[c] = to_f32(qp[c]);
+      acc[c] = 0.f;
+    }
+    const int t0 = split * chunk;
+    const int n = max(0, min(chunk, kv_len - t0));  // valid keys here
+    const size_t row_stride = (size_t)hkv * d;
+    const T* kp = k + ((size_t)bi * skv + t0) * row_stride + (size_t)hi * d;
+    const T* vp = v + ((size_t)bi * skv + t0) * row_stride + (size_t)hi * d;
+    for (int t = 0; t < n; t += kGenKeys)
+      softmax_keys<kGenKeys>(qs, acc, kp + (size_t)t * row_stride,
+                             vp + (size_t)t * row_stride, row_stride,
+                             min(kGenKeys, n - t), d, lane, scale_log2, m,
+                             l);
+    if (lane == 0) {
+      cm[warp] = m;
+      cl[warp] = l;
+    }
+  }
+
+  // CTA `split` writes elements split, split + n_split, ... of the group's
+  // hn x d outputs from every CTA's partial
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int i = tid * n_split + split; i < hn * d; i += n_split * kThreads) {
+    const int w = i / d, c = i - w * d;
+    float mx = -INFINITY;
+    for (int r = 0; r < n_split; ++r)
+      mx = fmaxf(mx, cluster.map_shared_rank(cm, r)[w]);
+    const float ms = mx == -INFINITY ? 0.f : mx;
+    float num = 0.f, den = 0.f;
+    for (int r = 0; r < n_split; ++r) {
+      const float a = exp2_or_0(cluster.map_shared_rank(cm, r)[w], ms);
+      num = fmaf(cluster.map_shared_rank(base, r)[(kWarps + w) * d + c], a,
+                 num);
+      den = fmaf(cluster.map_shared_rank(cl, r)[w], a, den);
+    }
+    out[(head0 + w) * d + c] = from_f32<T>(den > 0.f ? num / den : 0.f);
+  }
+  cluster.sync();  // no CTA leaves while another reads its partial
+}
+
+template <typename T>
+int launch_generic(const void* q, const void* k, const void* v, void* out,
+                   int b, int skv, int hq, int hkv, int d, int kv_len,
+                   int chunk, int n_split, float scale, cudaStream_t stream) {
+  const int g = hq / hkv, n_hg = (g + kWarps - 1) / kWarps;
+  const long long n_items = (long long)b * hkv * n_hg;
+  const int gy = (int)(n_items < 65535 ? n_items : 65535);
+  const long long gz = (n_items + gy - 1) / gy;
+  if (gz > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)2 * kWarps * d + 2 * kWarps);
+  return launch_clusters<decode_generic_kernel<T>>(
+      smem, n_split, gy, (int)gz, stream, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), skv, hq, hkv, d, g, n_hg, n_items, kv_len, chunk,
+      scale * kLog2e);
+}
+
 }  // namespace
 
 extern "C" {
 
-// The wrapper has checked: d in {32, 64, 80, 128, 256}, hq / hkv in
-// 1..16 (others return cudaErrorInvalidValue), 0 <= kv_len <=
-// skv, 16-byte aligned q/k/v, and 1 <= n_split <= 16 splits of `chunk`
-// keys that cover kv_len, none of them empty unless kv_len is 0.
+// dtype: 0 fp32, 1 bf16, 2 fp16. The wrapper has checked: d in {32, 64,
+// 80, 128, 256}, hq / hkv in 1..16 (others return cudaErrorInvalidValue),
+// b and hkv under 65536, 0 <= kv_len <= skv, 16-byte aligned q/k/v, and
+// 1 <= n_split <= 16 splits of `chunk` keys that cover kv_len, none of
+// them empty unless kv_len is 0.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             void* out, int b, int skv, int hq, int hkv,
                             int d, int kv_len, int chunk, int n_split,
-                            float scale, int is_bf16, void* stream) {
+                            float scale, int dtype, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (b == 0 || hq == 0) return (int)cudaGetLastError();
   const int g = hq / hkv;
@@ -656,16 +776,41 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
 #define DECODE_ARGS \
   q, k, v, out, b, skv, hq, hkv, kv_len, chunk, n_split, scale, s
   switch (d) {
-#define DECODE_D(DD)                                \
-  case DD:                                         \
-    return is_bf16 ? launch_tc<DD>(DECODE_ARGS)    \
-                   : launch_fp32_g<DD>(g, DECODE_ARGS);
+#define DECODE_D(DD)                                        \
+  case DD:                                                 \
+    return dtype == 1   ? launch_tc<bf16, DD>(DECODE_ARGS) \
+           : dtype == 2 ? launch_tc<f16, DD>(DECODE_ARGS)  \
+                        : launch_fp32_g<DD>(g, DECODE_ARGS);
     DECODE_D(32) DECODE_D(64) DECODE_D(80) DECODE_D(128) DECODE_D(256)
 #undef DECODE_D
 #undef DECODE_ARGS
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The generic kernel (decode_generic_kernel): any d >= 1 whose (2 * 4 * d
+// + 8) floats of shared memory a CTA can hold, any g = hq / hkv >= 1,
+// dtype 0 fp32, 1 bf16, 2 fp16; the same split as the others.
+int decode_attention_generic_launch(const void* q, const void* k,
+                                    const void* v, void* out, int b, int skv,
+                                    int hq, int hkv, int d, int kv_len,
+                                    int chunk, int n_split, float scale,
+                                    int dtype, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (b == 0 || hq == 0) return (int)cudaGetLastError();
+  if (n_split < 1 || n_split > kMaxCluster || chunk < 1 ||
+      (long long)chunk * n_split < kv_len || hkv < 1 || hq % hkv != 0)
+    return (int)cudaErrorInvalidValue;
+#define DECODE_ARGS \
+  q, k, v, out, b, skv, hq, hkv, d, kv_len, chunk, n_split, scale, s
+  switch (dtype) {
+    case 0: return launch_generic<float>(DECODE_ARGS);
+    case 1: return launch_generic<bf16>(DECODE_ARGS);
+    case 2: return launch_generic<f16>(DECODE_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DECODE_ARGS
 }
 
 }  // extern "C"

@@ -3,15 +3,15 @@
 //
 // Replaces repro/kernels/kv_dequant/kernel.py::_kernel (kv_dequant) and
 // ::_mixed_kernel (kv_dequant_mixed): uint8 codes plus per-group fp32
-// parameters -> x = code * step + zero, written as fp32 or bf16.
+// parameters -> x = code * step + zero, written as fp32, bf16 or fp16.
 //
 // What bounds it: bytes. Each value reads 1 B of code and writes 4 B of
-// fp32 (2 B of bf16); each group also reads 8 B of parameters. A cachegen
-// request of the main path (144 chunk tensors of 1,048,576 values, group
-// 64, fp32 out) moves 774 MB: 0.231 ms at the H100's 3.35 TB/s. Launched
-// once per chunk tensor, the same work was bound by launch overhead
-// instead (1.6 us of bytes a launch), and each chunk's output took one
-// more copy into the cache.
+// fp32 (2 B of bf16 or fp16); each group also reads 8 B of parameters. A
+// cachegen request of the main path (144 chunk tensors of 1,048,576
+// values, group 64, fp32 out) moves 774 MB: 0.231 ms at the H100's 3.35
+// TB/s. Launched once per chunk tensor, the same work was bound by launch
+// overhead instead (1.6 us of bytes a launch), and each chunk's output
+// took one more copy into the cache.
 //
 // What the design does about it:
 // - One launch takes a list of entries (chunk tensors). Their codes,
@@ -46,14 +46,16 @@
 // Rounding: the result is fma(code, step, zero) rounded once, as the
 // Pallas kernels give it; the mixed form's step is the IEEE fp32 quotient
 // span / (2^bits - 1). The explicit intrinsics keep -fmad and -prec-div
-// from changing either. bf16 output is that fp32 value rounded to nearest
-// even.
+// from changing either. bf16 and fp16 output is that fp32 value rounded to
+// nearest even (__float2bfloat16_rn, __float2half_rn), as torch's cast of
+// the plain version's fp32 addcmul.
 //
 // Plain C interface for ctypes. The launcher returns the first CUDA error
 // it meets, cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -128,6 +130,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
 // kVals values (one 16-byte store) to `out`, or only the first `left`.
 __device__ __forceinline__ void put(float* out, const float* x, int64_t left) {
   if (left >= 4) {
@@ -152,9 +159,24 @@ __device__ __forceinline__ void put(__nv_bfloat16* out, const float* x,
   }
 }
 
+__device__ __forceinline__ void put(__half* out, const float* x,
+                                    int64_t left) {
+  if (left >= 8) {
+    store16(out, pack_f16(x[0], x[1]), pack_f16(x[2], x[3]),
+                 pack_f16(x[4], x[5]), pack_f16(x[6], x[7]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i < left) out[i] = __float2half_rn(x[i]);
+  }
+}
+
 __device__ __forceinline__ void put1(float* out, float x) { *out = x; }
 __device__ __forceinline__ void put1(__nv_bfloat16* out, float x) {
   *out = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void put1(__half* out, float x) {
+  *out = __float2half_rn(x);
 }
 
 // The step and zero of group gi.
@@ -317,34 +339,42 @@ int launch(const void* codes, const void* params, const void* zeros,
 extern "C" {
 
 // One launch over a batch of entries (see dequant_kernel). mixed: params
-// are spans and the table's bit-widths set the steps; out_bf16: every
-// destination is bf16, else fp32.
+// are spans and the table's bit-widths set the steps; out_type: every
+// destination is fp32 (0), bf16 (1) or fp16 (2).
 int kv_dequant_launch(const void* codes, const void* params,
                       const void* zeros, const void* table, int n_entries,
-                      long long n_codes, int group, int mixed, int out_bf16,
+                      long long n_codes, int group, int mixed, int out_type,
                       void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (mixed)
-    return out_bf16 ? launch<__nv_bfloat16, true>(codes, params, zeros, table,
-                                                  n_entries, n_codes, group,
-                                                  s)
-                    : launch<float, true>(codes, params, zeros, table,
-                                          n_entries, n_codes, group, s);
-  return out_bf16 ? launch<__nv_bfloat16, false>(codes, params, zeros, table,
-                                                 n_entries, n_codes, group, s)
-                  : launch<float, false>(codes, params, zeros, table,
-                                         n_entries, n_codes, group, s);
+#define DQ_LAUNCH(OUT, MIXED) \
+  return launch<OUT, MIXED>(codes, params, zeros, table, n_entries, n_codes, \
+                            group, s)
+  if (out_type == 1) {
+    if (mixed) DQ_LAUNCH(__nv_bfloat16, true);
+    DQ_LAUNCH(__nv_bfloat16, false);
+  }
+  if (out_type == 2) {
+    if (mixed) DQ_LAUNCH(__half, true);
+    DQ_LAUNCH(__half, false);
+  }
+  if (out_type != 0) return (int)cudaErrorInvalidValue;
+  if (mixed) DQ_LAUNCH(float, true);
+  DQ_LAUNCH(float, false);
+#undef DQ_LAUNCH
 }
 
 // The grid kv_dequant_launch takes for n_codes codes, or -(CUDA error).
-int kv_dequant_grid(long long n_codes, int mixed, int out_bf16) {
+int kv_dequant_grid(long long n_codes, int mixed, int out_type) {
   int grid = 0, err;
-  if (mixed)
-    err = out_bf16 ? grid_size<__nv_bfloat16, true>(n_codes, &grid)
-                   : grid_size<float, true>(n_codes, &grid);
+  if (out_type == 1)
+    err = mixed ? grid_size<__nv_bfloat16, true>(n_codes, &grid)
+                : grid_size<__nv_bfloat16, false>(n_codes, &grid);
+  else if (out_type == 2)
+    err = mixed ? grid_size<__half, true>(n_codes, &grid)
+                : grid_size<__half, false>(n_codes, &grid);
   else
-    err = out_bf16 ? grid_size<__nv_bfloat16, false>(n_codes, &grid)
-                   : grid_size<float, false>(n_codes, &grid);
+    err = mixed ? grid_size<float, true>(n_codes, &grid)
+                : grid_size<float, false>(n_codes, &grid);
   return err ? -err : grid;
 }
 

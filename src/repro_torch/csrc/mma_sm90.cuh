@@ -1,17 +1,24 @@
-// PTX helpers shared by the tensor-core kernels of this directory:
-// cp.async copies into shared memory, ldmatrix, and the bf16 mma.sync
-// m16n8k16 with fp32 accumulation. Fragment layouts (PTX ISA, "Matrix
-// fragments for mma.m16n8k16"): lane l holds rows l / 4 and l / 4 + 8 and
-// columns 2 * (l % 4) + {0, 1} (+ 8) of each 16 x 8 tile.
+// Helpers shared by the attention kernels of this directory: cp.async
+// copies into shared memory, ldmatrix, the bf16 and fp16 mma.sync
+// m16n8k16 with fp32 accumulation, the element types' conversions, and
+// the generic kernels' online-softmax step over a few keys.
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"): lane l
+// holds rows l / 4 and l / 4 + 8 and columns 2 * (l % 4) + {0, 1} (+ 8) of
+// each 16 x 8 tile; the fp16 instruction has the bf16 one's shape and
+// fragments, so a kernel templated on the element type takes either.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace sm90 {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -58,9 +65,48 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+// c += a (16 x 16, row) * b (16 x 8, col), fp16 in, fp32 accumulate
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// The mma and the packing (round to nearest even) of element type T, bf16
+// or fp16.
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (std::is_same_v<T, f16>) mma_f16(c, a, b0, b1);
+  else mma_bf16(c, a, b0, b1);
+}
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, f16>) return pack_f16(lo, hi);
+  else return pack_bf16(lo, hi);
+}
+
+// An element of fp32, bf16 or fp16 to fp32, and fp32 to T rounded to
+// nearest even.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (std::is_same_v<T, f16>) return __float2half_rn(x);
+  else if constexpr (std::is_same_v<T, bf16>) return __float2bfloat16_rn(x);
+  else return x;
 }
 
 // Row pitch, in elements, of a [rows][D] bf16 tile in shared memory. Where
@@ -90,6 +136,57 @@ __device__ __forceinline__ int swz(int row, int ch) {
     return row * D + ((ch ^ (row & 7)) << 3);
   else  // an odd number of chunks a row: no swizzle needed
     return row * P + (ch << 3);
+}
+
+// Up to U keys of one warp's online softmax at a time (the generic
+// attention kernels): rows kr + u * stride and vr + u * stride for u < n,
+// lane l owning columns l, l + 32, ... of q (qs) and the fp32 accumulator
+// (acc), both in shared memory and touched by their lane alone. The U dot
+// products' loads and shuffle reductions are independent, so they overlap
+// where one key at a time waits on each; p is rounded to T for the PV
+// product (the Pallas kernels' p.astype(v.dtype)) while l sums it
+// unrounded. Warp-uniform: every lane calls it with the same n.
+template <int U, typename T>
+__device__ __forceinline__ void softmax_keys(const float* qs, float* acc,
+                                             const T* kr, const T* vr,
+                                             size_t stride, int n, int d,
+                                             int lane, float scale_log2,
+                                             float& m, float& l) {
+  float dot[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) dot[u] = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float qc = qs[c];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (u < n) dot[u] = fmaf(qc, to_f32(kr[u * stride + c]), dot[u]);
+  }
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1)
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], w);
+  float m_new = m;
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (u < n) m_new = fmaxf(m_new, dot[u] * scale_log2);
+  const float corr = exp2f(m - m_new);  // 0 while m is -inf
+  float pv[U];
+  l *= corr;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const float p = u < n ? exp2f(dot[u] * scale_log2 - m_new) : 0.f;
+    l += p;
+    pv[u] = to_f32(from_f32<T>(p));
+  }
+  m = m_new;
+  for (int c = lane; c < d; c += 32) {
+    float a = acc[c] * corr;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (u < n) a = fmaf(pv[u], to_f32(vr[u * stride + c]), a);
+    acc[c] = a;
+  }
 }
 
 }  // namespace sm90

@@ -1,19 +1,25 @@
 """Block-sparse flash attention: the CUDA kernel and its plain PyTorch
 version.
 
-The kernel (``csrc/block_sparse_attn.cu``) replaces the Pallas kernel of
+The kernels (``csrc/block_sparse_attn.cu``) replace the Pallas kernel of
 ``repro/kernels/block_sparse_attn/kernel.py``. ``block_sparse_attention``
-launches it on CUDA tensors; each launch adds one to ``LAUNCHES``. The
-source holds one kernel for each dtype, and the launch dispatches on it:
-bf16 runs on the tensor cores (``mma.sync``, 16 to 128 query rows a
-CTA), fp32 on the CUDA cores, whose fp32 products the fp32 tolerance
-needs. Neither stands in for the other. ``supported`` states, without a
-card, which head shapes the kernels take: head sizes 64, 80, 128 and 256
-(every attention-bearing config of ``repro_torch.configs``) and any
-group; the reference takes any head size. ``supported_blocks`` states
-which block sizes they take: any q_block and kv_block that are positive
-multiples of 16 (every block size of the repo's configs, CLIs and
-tests); the reference takes any.
+launches one of them on CUDA tensors, chosen by shape before the launch:
+
+- the fast kernels, where ``_tc_supported`` and ``_tc_blocks`` hold
+  (head sizes 64, 80, 128 and 256, every attention-bearing config of
+  ``repro_torch.configs``; blocks that are multiples of 16): bf16 and
+  fp16 on the tensor cores (``mma.sync``, 16 to 128 query rows a CTA),
+  fp32 on the CUDA cores, whose fp32 products the fp32 tolerance needs.
+  Each launch adds one to ``LAUNCHES["block_sparse_attention"]``;
+- the generic kernel for every other shape the reference takes: any head
+  size up to ``_GENERIC_MAX_D``, any q_block and kv_block, fp32, bf16 or
+  fp16, one warp a query row on the CUDA cores. Each launch adds one to
+  ``LAUNCHES["block_sparse_attention_generic"]``.
+
+``supported(hq, hkv, d, dtype)`` and ``supported_blocks(q_block,
+kv_block)`` state, without a card, what the port takes on the card: what
+the reference's contract takes (hq a multiple of hkv; positive blocks),
+up to the generic kernel's head-size limit, in fp32, bf16 and fp16.
 ``block_sparse_attention_plain`` computes what the Pallas kernel computes
 with torch ops: per (head, q-block) the online softmax over the listed kv
 blocks in list order, scores in fp32, p rounded to v's dtype before the
@@ -28,11 +34,18 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = {"block_sparse_attention": 0}
+LAUNCHES = {"block_sparse_attention": 0,
+            "block_sparse_attention_generic": 0}
 
-_DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (64, 80, 128, 256)
-_SEG = 16            # block sizes are multiples of it (mma.sync's m16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODE = {dt: i for i, dt in enumerate(_DTYPES)}    # the C code's
+_HEAD_DIMS = (64, 80, 128, 256)    # the fast kernels' head sizes
+_SEG = 16            # the fast kernels' blocks are multiples of it (m16)
+# the generic kernel's head sizes: 1 to this. Its CTA keeps 4 warps' q
+# rows and fp32 accumulators in shared memory, 32 * d bytes: 128 KB here,
+# of the 227 KB a CTA may hold
+_GENERIC_MAX_D = 4096
+_MAX_GRID_Y = 65535  # the tensor-core kernels' row blocks (gridDim.y)
 
 
 def reset_launches() -> None:
@@ -127,40 +140,74 @@ def _lib():
             p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_float,
             i, i, p]
         lib.block_sparse_attention_launch.restype = i
+        lib.block_sparse_attention_generic_launch.argtypes = [
+            p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_float,
+            i, p]
+        lib.block_sparse_attention_generic_launch.restype = i
         _LIB = lib
     return _LIB
 
 
 def supported(hq: int, hkv: int, d: int, dtype) -> bool:
-    """Whether the kernels take hq query heads over hkv kv heads of head
-    size d in ``dtype``: d in ``_HEAD_DIMS``, any group hq / hkv, fp32 or
-    bf16. Needs no card."""
-    return (hkv >= 1 and hq >= hkv and hq % hkv == 0 and d in _HEAD_DIMS
-            and dtype in _DTYPES)
+    """Whether the port takes hq query heads over hkv kv heads of head
+    size d in ``dtype`` on the card: hq a multiple of hkv (the reference's
+    ``bh == bh_kv * kv_group``), d from 1 to ``_GENERIC_MAX_D``, fp32,
+    bf16 or fp16. Needs no card."""
+    return (hkv >= 1 and hq >= hkv and hq % hkv == 0
+            and 1 <= d <= _GENERIC_MAX_D and dtype in _DTYPES)
 
 
 def supported_blocks(q_block: int, kv_block: int) -> bool:
-    """Whether the kernels take q-blocks of `q_block` rows and kv blocks of
-    `kv_block` rows: positive multiples of 16. Needs no card."""
+    """Whether the port takes q-blocks of `q_block` rows and kv blocks of
+    `kv_block` rows on the card: any positive sizes. Needs no card."""
+    return q_block > 0 and kv_block > 0
+
+
+def _tc_supported(hq: int, hkv: int, d: int, dtype) -> bool:
+    """Whether the fast kernels take the head shape: d in
+    ``_HEAD_DIMS``."""
+    return supported(hq, hkv, d, dtype) and d in _HEAD_DIMS
+
+
+def _tc_blocks(q_block: int, kv_block: int) -> bool:
+    """Whether the fast kernels take the blocks: positive multiples of
+    16."""
     return all(b > 0 and b % _SEG == 0 for b in (q_block, kv_block))
 
 
+def _fast(bh, bh_kv, sq, d, dtype, q_block, kv_block) -> bool:
+    """The shape test that picks the kernel before the launch: the fast
+    kernels where they take the head shape, the blocks and the grid (row
+    blocks on gridDim.y for bf16 and fp16, bh * row blocks on gridDim.x
+    for fp32)."""
+    if not (_tc_supported(bh, bh_kv, d, dtype)
+            and _tc_blocks(q_block, kv_block)):
+        return False
+    n_rb = sq // _cta_rows(q_block, dtype)
+    return (n_rb <= _MAX_GRID_Y if dtype != torch.float32
+            else bh * n_rb < 2 ** 31)
+
+
 def _check(q, k, v, block_idx, block_cnt, q_block, kv_block, kv_group):
-    if q.device.type != "cuda":
-        raise ValueError(f"kernel needs CUDA tensors, got {q.device}")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError("q must be (bh, sq, d) and k, v (bh_kv, skv, d)")
     bh, sq, d = q.shape
     bh_kv, skv, dk = k.shape
-    if dk != d or kv_group < 1 or bh != bh_kv * kv_group:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
-                         f"not match with kv_group {kv_group}")
-    if not supported(bh, bh_kv, d, q.dtype):
-        raise ValueError(f"head size {d} in {q.dtype}: the kernels take "
-                         f"head sizes {_HEAD_DIMS} in {_DTYPES}")
+    if dk != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in head size")
+    if bh_kv < 1 or kv_group < 1 or bh != bh_kv * kv_group:
+        raise ValueError(f"bh {bh} must be bh_kv {bh_kv} * kv_group "
+                         f"{kv_group}, with at least one kv row")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"dtype {q.dtype}: the kernels take {_DTYPES}")
+    if not 1 <= d <= _GENERIC_MAX_D:
+        raise ValueError(f"head size {d}: the kernels take 1 to "
+                         f"{_GENERIC_MAX_D}, the generic kernel's limit "
+                         f"(its CTA holds 32 * d bytes of shared memory)")
     if not supported_blocks(q_block, kv_block):
         raise ValueError(f"q_block {q_block} and kv_block {kv_block} must "
-                         f"be positive multiples of {_SEG}")
+                         "be positive")
     if sq % q_block or skv % kv_block:
         raise ValueError(f"sq {sq} must be a multiple of q_block {q_block} "
                          f"and skv {skv} of kv_block {kv_block}")
@@ -173,21 +220,22 @@ def _check(q, k, v, block_idx, block_cnt, q_block, kv_block, kv_group):
             or tuple(block_cnt.shape) != (bh, n_qb)):
         raise ValueError(f"block_idx must be int32 (bh, {n_qb}, max_nnz) "
                          f"and block_cnt int32 ({bh}, {n_qb})")
+    if q.device.type != "cuda":
+        raise ValueError(f"kernel needs CUDA tensors, got {q.device}")
     for t in (q, k, v, block_idx, block_cnt):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("all inputs must be contiguous on one device")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k, v must be 16-byte aligned")
-    if bh >= 65536:
-        raise ValueError(f"bh {bh} exceeds the kernel's grid")
 
 
 def _cta_rows(q_block: int, dtype) -> int:
-    """Query rows a CTA takes, all of one q-block: the most of 128 (the
-    tensor-core kernel's 8 warps of 16 rows; at d = 256 a CTA of 128 rows
-    holds 192 KB of shared memory, one CTA an SM), 64, 32 and 16 that
-    divides q_block; the fp32 kernel at most 64."""
-    top = 128 if dtype == torch.bfloat16 else 64
+    """Query rows a CTA of the fast kernels takes, all of one q-block: the
+    most of 128 (the tensor-core kernel's 8 warps of 16 rows; at d = 256 a
+    CTA of 128 rows holds 192 KB of shared memory, one CTA an SM), 64, 32
+    and 16 that divides q_block (a multiple of 16); the fp32 kernel at
+    most 64."""
+    top = 64 if dtype == torch.float32 else 128
     return next(r for r in (128, 64, 32, 16) if r <= top and q_block % r == 0)
 
 
@@ -195,9 +243,10 @@ def block_sparse_attention(q, k, v, block_idx, block_cnt, *,
                            causal: bool = True, q_block: int = 128,
                            kv_block: int = 128, scale: float | None = None,
                            kv_group: int = 1):
-    """Launch the CUDA kernel: same contract as
-    ``block_sparse_attention_plain``. List entries outside [0, skv //
-    kv_block) are skipped rather than read."""
+    """Launch a CUDA kernel: same contract as
+    ``block_sparse_attention_plain``. The fast kernels take the shapes
+    they were built for (``_fast``), the generic kernel the rest. List
+    entries outside [0, skv // kv_block) are skipped rather than read."""
     _check(q, k, v, block_idx, block_cnt, q_block, kv_block, kv_group)
     lib = _lib()
     bh, sq, d = q.shape
@@ -205,14 +254,18 @@ def block_sparse_attention(q, k, v, block_idx, block_cnt, *,
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.block_sparse_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), block_idx.data_ptr(),
-        block_cnt.data_ptr(), out.data_ptr(), bh, sq, skv, d,
-        sq // q_block, block_idx.shape[-1], q_block, kv_block, kv_group,
-        int(causal), float(scale), int(q.dtype == torch.bfloat16),
-        _cta_rows(q_block, q.dtype), stream)
-    LAUNCHES["block_sparse_attention"] += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), block_idx.data_ptr(),
+            block_cnt.data_ptr(), out.data_ptr(), bh, sq, skv, d,
+            sq // q_block, block_idx.shape[-1], q_block, kv_block, kv_group,
+            int(causal), float(scale), _DTYPE_CODE[q.dtype])
+    if _fast(bh, k.shape[0], sq, d, q.dtype, q_block, kv_block):
+        name = "block_sparse_attention"
+        err = lib.block_sparse_attention_launch(
+            *args, _cta_rows(q_block, q.dtype), stream)
+    else:
+        name = "block_sparse_attention_generic"
+        err = lib.block_sparse_attention_generic_launch(*args, stream)
+    LAUNCHES[name] += 1
     if err:
-        raise RuntimeError(f"block_sparse_attention launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out

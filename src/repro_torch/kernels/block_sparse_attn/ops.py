@@ -1,27 +1,37 @@
 """Sparse prefill attention: block importance -> block lists -> the
-block-sparse kernel (PyTorch port of
+block-sparse kernels (PyTorch port of
 ``repro/kernels/block_sparse_attn/ops.py``).
 
 `sparse_prefill_attention` is the paper's sparse local-compute attention:
 score blocks with pooled q/k, keep each row's blocks up to `mass`
 (``sparse/mask.py``), then attend over the kept blocks. The kernel call
-dispatches on the tensors' device: the CUDA kernel on the card (with the
-kv heads unrepeated and ``kv_group = hq / hkv``), the plain version on
-the CPU, an error anywhere else. ``use_ref=True`` takes the dense oracle
-of ``ref.py``. The reference's ``interpret`` argument chose the Pallas
-interpreter and has no counterpart here.
+dispatches on the tensors' device: a CUDA kernel on the card (with the
+kv heads unrepeated and ``kv_group = hq / hkv``; inputs in another
+layout than contiguous and 16-byte aligned are copied first and counted
+in ``COPIES``), the plain version on the CPU, an error anywhere else.
+``use_ref=True`` takes the dense oracle of ``ref.py``. The reference's
+``interpret`` argument chose the Pallas interpreter and has no
+counterpart here.
 """
 from __future__ import annotations
 
+from repro_torch.kernels._layout import dense
 from repro_torch.kernels.block_sparse_attn import kernel as K
 from repro_torch.kernels.block_sparse_attn.ref import \
     block_sparse_attention_ref
 from repro_torch.sparse.mask import block_scores, select_blocks
 
+# inputs copied into the kernels' layout (contiguous, 16-byte aligned)
+COPIES = {"block_sparse_attention": 0}
+
 
 def block_sparse_attention(q, k, v, block_idx, block_cnt, **kw):
-    """Same contract as ``kernel.block_sparse_attention_plain``."""
+    """Same contract as ``kernel.block_sparse_attention_plain``, for q, k,
+    v and the lists in any layout."""
     if q.device.type == "cuda":
+        q, k, v, block_idx, block_cnt = (
+            dense(t, COPIES, "block_sparse_attention")
+            for t in (q, k, v, block_idx, block_cnt))
         return K.block_sparse_attention(q, k, v, block_idx, block_cnt, **kw)
     if q.device.type == "cpu":
         return K.block_sparse_attention_plain(q, k, v, block_idx, block_cnt,

@@ -1,22 +1,30 @@
 """GQA flash-decode: the CUDA kernel and its plain PyTorch version.
 
-The kernel (``csrc/decode_attn.cu``) replaces the Pallas kernel of
-``repro/kernels/decode_attn/kernel.py``. ``decode_attention`` launches it
-on CUDA tensors: one launch a call (``kv_len`` 0 included, which writes
-zeros), and each launch adds one to ``LAUNCHES``. The kernel splits the
-cache its own way, by ``split_plan`` from the card's SM count, into one
-thread block cluster a (batch, kv head) that combines its splits in the
-same launch; ``kv_block`` only sets the plain version's blocks, since the
-split changes nothing but the order of sums.
+The kernels (``csrc/decode_attn.cu``) replace the Pallas kernel of
+``repro/kernels/decode_attn/kernel.py``. ``decode_attention`` launches one
+of them on CUDA tensors, one launch a call (``kv_len`` 0 included, which
+writes zeros), chosen by shape before the launch: the fast kernels where
+``_fast`` holds (head sizes ``_HEAD_DIMS``, 1 to ``_MAX_GROUP`` query
+heads a kv head: every attention-bearing config of
+``repro_torch.configs``), bf16 and fp16 on the tensor cores and fp32 on
+the CUDA cores, each launch adding one to
+``LAUNCHES["decode_attention"]``; the generic kernel (any head size up
+to ``_GENERIC_MAX_D``, any group, fp32, bf16 or fp16, a warp a query
+head on the CUDA cores) for the rest, adding one to
+``LAUNCHES["decode_attention_generic"]``. Both split the cache their own
+way, by ``split_plan`` from the card's SM count, into one thread block
+cluster a (batch, kv head) (and head group, generic) that combines its
+splits in the same launch; ``kv_block`` only sets the plain version's
+blocks, since the split changes nothing but the order of sums.
 ``decode_attention_plain`` computes the same function with torch ops:
 per kv block of ``kv_block`` keys, the block's max, p rounded to v's
 dtype before the PV product, and the blocks' fp32 partials combined at
 the end. The Pallas kernel carries one running softmax over the blocks
 instead; the two agree to rounding. The CPU path takes the plain version
 (``ops.py``); the card never does. ``supported`` states, without a card,
-which head shapes the kernel takes: head sizes 32, 64, 80, 128 and 256
-and 1 to 16 query heads a kv head, which cover every attention-bearing
-config of ``repro_torch.configs``; the reference takes any.
+which head shapes the port takes on the card: what the reference's
+contract takes (hq a multiple of hkv), up to the generic kernel's head
+size limit, in fp32, bf16 and fp16.
 """
 from __future__ import annotations
 
@@ -27,11 +35,17 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-LAUNCHES = {"decode_attention": 0}
+LAUNCHES = {"decode_attention": 0, "decode_attention_generic": 0}
 
-_DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (32, 64, 80, 128, 256)
-_MAX_GROUP = 16        # query heads per kv head, 1 .. this
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODE = {dt: i for i, dt in enumerate(_DTYPES)}    # the C code's
+_HEAD_DIMS = (32, 64, 80, 128, 256)   # the fast kernels' head sizes
+_MAX_GROUP = 16        # the fast kernels' query heads per kv head, 1 .. this
+_MAX_GRID_YZ = 65535   # the fast kernels' kv heads (gridDim.y), batch (z)
+# the generic kernel's head sizes: 1 to this. Its CTA keeps 4 heads' q and
+# fp32 accumulators in shared memory, 32 * d bytes: 64 KB here, so that a
+# cluster of 16 CTAs finds room on the SMs of one GPC, 3 CTAs an SM
+_GENERIC_MAX_D = 2048
 _SPLIT_ROWS = 64       # a split holds a multiple of this many key rows
 _MIN_SPLIT = 256       # keys a split at least, to amortise its combine
 _MAX_SPLITS = 16       # a cluster's CTAs (csrc/decode_attn.cu kMaxCluster)
@@ -119,24 +133,35 @@ def _lib():
     if _LIB is None:
         lib = _build.load("decode_attn")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.decode_attention_launch.argtypes = [
-            p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
-        lib.decode_attention_launch.restype = i
+        for name in ("decode_attention_launch",
+                     "decode_attention_generic_launch"):
+            fn = getattr(lib, name)
+            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
+                           ctypes.c_float, i, p]
+            fn.restype = i
         _LIB = lib
     return _LIB
 
 
 def supported(hq: int, hkv: int, d: int, dtype) -> bool:
-    """Whether the kernel takes hq query heads over hkv kv heads of head
-    size d in ``dtype``: d in ``_HEAD_DIMS``, hq a multiple of hkv by 1 to
-    ``_MAX_GROUP``, fp32 or bf16. Needs no card."""
-    return (hkv >= 1 and hq % hkv == 0 and 1 <= hq // hkv <= _MAX_GROUP
-            and d in _HEAD_DIMS and dtype in _DTYPES)
+    """Whether the port takes hq query heads over hkv kv heads of head
+    size d in ``dtype`` on the card: hq a positive multiple of hkv (the
+    reference reshapes q to (b, hkv, g, d)), d from 1 to
+    ``_GENERIC_MAX_D``, fp32, bf16 or fp16. Needs no card."""
+    return (hkv >= 1 and hq >= hkv and hq % hkv == 0
+            and 1 <= d <= _GENERIC_MAX_D and dtype in _DTYPES)
+
+
+def _fast(b: int, hq: int, hkv: int, d: int, dtype) -> bool:
+    """The shape test that picks the kernel before the launch: the fast
+    kernels where d is in ``_HEAD_DIMS``, the group 1 to ``_MAX_GROUP``
+    and b and hkv fit their grid."""
+    return (supported(hq, hkv, d, dtype) and d in _HEAD_DIMS
+            and hq // hkv <= _MAX_GROUP and b <= _MAX_GRID_YZ
+            and hkv <= _MAX_GRID_YZ)
 
 
 def _check(q, k, v, kv_len):
-    if q.device.type != "cuda":
-        raise ValueError(f"kernel needs CUDA tensors, got {q.device}")
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("q must be (b, hq, d) and k, v (b, skv, hkv, d)")
     b, hq, d = q.shape
@@ -144,30 +169,35 @@ def _check(q, k, v, kv_len):
     if kb != b or dk != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
                          "not match")
-    if not supported(hq, hkv, d, q.dtype):
-        raise ValueError(f"{hq} query heads over {hkv} kv heads of size {d} "
-                         f"in {q.dtype}: the kernel takes head sizes "
-                         f"{_HEAD_DIMS}, hq a multiple of hkv by 1 to "
-                         f"{_MAX_GROUP}, in {_DTYPES}")
+    if hkv < 1 or hq < hkv or hq % hkv:
+        raise ValueError(f"{hq} query heads over {hkv} kv heads: hq must be "
+                         "a positive multiple of hkv")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"dtype {q.dtype}: the kernels take {_DTYPES}")
+    if not 1 <= d <= _GENERIC_MAX_D:
+        raise ValueError(f"head size {d}: the kernels take 1 to "
+                         f"{_GENERIC_MAX_D}, the generic kernel's limit "
+                         f"(its CTA holds 32 * d bytes of shared memory)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one dtype of {_DTYPES}")
+    if not 0 <= kv_len <= skv:
+        raise ValueError(f"kv_len {kv_len} outside [0, {skv}]")
+    if q.device.type != "cuda":
+        raise ValueError(f"kernel needs CUDA tensors, got {q.device}")
     for t in (q, k, v):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("all inputs must be contiguous on one device")
         if t.data_ptr() % 16:
             raise ValueError("q, k, v must be 16-byte aligned")
-    if not 0 <= kv_len <= skv:
-        raise ValueError(f"kv_len {kv_len} outside [0, {skv}]")
-    if b >= 65536 or hkv >= 65536:
-        raise ValueError("inputs too large for the kernel's grid")
 
 
 def decode_attention(q, k, v, kv_len: int, *, kv_block: int = 256,
                      scale: float | None = None):
-    """Launch the CUDA kernel: same contract as
-    ``decode_attention_plain``. ``kv_block`` must be positive; the
-    kernel's split is ``split_plan``'s, which changes only the order of
-    sums."""
+    """Launch a CUDA kernel: same contract as
+    ``decode_attention_plain``. The fast kernels take the shapes they were
+    built for (``_fast``), the generic kernel the rest. ``kv_block`` must
+    be positive; the kernels' split is ``split_plan``'s, which changes
+    only the order of sums."""
     kv_len = int(kv_len)
     if kv_block <= 0:
         raise ValueError(f"kv_block {kv_block} must be positive")
@@ -179,12 +209,13 @@ def decode_attention(q, k, v, kv_len: int, *, kv_block: int = 256,
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.decode_attention_launch(
+    name = ("decode_attention" if _fast(b, hq, hkv, d, q.dtype)
+            else "decode_attention_generic")
+    err = getattr(lib, name + "_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, skv, hq,
-        hkv, d, kv_len, chunk, n_split, float(scale),
-        int(q.dtype == torch.bfloat16), stream)
-    LAUNCHES["decode_attention"] += 1
+        hkv, d, kv_len, chunk, n_split, float(scale), _DTYPE_CODE[q.dtype],
+        stream)
+    LAUNCHES[name] += 1
     if err:
-        raise RuntimeError(f"decode_attention launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out

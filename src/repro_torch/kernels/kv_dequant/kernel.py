@@ -33,7 +33,8 @@ from repro_torch.kernels import _build
 
 LAUNCHES = {"kv_dequant": 0, "kv_dequant_mixed": 0}
 
-_OUT_DTYPES = (torch.float32, torch.bfloat16)
+_OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_OUT_TYPE = {dt: i for i, dt in enumerate(_OUT_DTYPES)}   # the C code's
 _MAX_SPAN = 2 ** 31  # codes an entry spans at most (the kernel's offsets)
 _COLS = 5            # first group, value count, address, bits, first code
 
@@ -61,10 +62,10 @@ class Batch:
     first group and first code (an entry's groups are the ceil(n_vals /
     group) from its first group, and its codes as many whole groups from
     its first code; ``bits`` is read only when ``mixed``); dests: the E
-    contiguous tensors, all float32 or all bfloat16, whose first n_vals
-    elements the entries fill (``dst`` is their address); rows: the table
-    as the host built it, which the launcher checks without reading the
-    device."""
+    contiguous tensors, all float32, all bfloat16 or all float16, whose
+    first n_vals elements the entries fill (``dst`` is their address);
+    rows: the table as the host built it, which the launcher checks
+    without reading the device."""
     codes: torch.Tensor
     params: torch.Tensor
     zeros: torch.Tensor
@@ -145,8 +146,7 @@ def _lib():
 
 def grid_size(n_codes: int, *, mixed: bool, out_dtype) -> int:
     """The CTAs one launch over n_codes codes takes on this card."""
-    g = _lib().kv_dequant_grid(n_codes, int(mixed),
-                               int(out_dtype == torch.bfloat16))
+    g = _lib().kv_dequant_grid(n_codes, int(mixed), _OUT_TYPE[out_dtype])
     if g < 0:
         raise RuntimeError(f"kv_dequant grid query failed: CUDA error {-g}")
     return g
@@ -161,7 +161,7 @@ def _launch(codes, params, zeros, table, n_entries, group, mixed,
     err = _lib().kv_dequant_launch(
         codes.data_ptr(), params.data_ptr(), zeros.data_ptr(),
         table.data_ptr(), n_entries, codes.numel(), group, int(mixed),
-        int(out_dtype == torch.bfloat16), stream)
+        _OUT_TYPE[out_dtype], stream)
     LAUNCHES[name] += 1
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -91,8 +91,9 @@ def _cross_kv(cfg, params, enc_out):
 def _dec_block(cfg, bp, x, cross_kv, *, self_cache=None, pos=None):
     """One decoder layer. Teacher-forced (self_cache None): causal
     self-attention over x, returns (x, (k, v)). Decode: self_cache =
-    (k, v) of (b, dec_len, hkv, hd), written IN PLACE at pos; returns
-    (x, self_cache)."""
+    (k, v) of (b, dec_len, hkv, hd), written IN PLACE at pos (at the last
+    slot past it, as the reference's ``dynamic_update_slice`` clamps;
+    kv_len pos + 1 then attends every slot); returns (x, self_cache)."""
     h = L.apply_norm(cfg, x, bp["self_norm"])
     q, k, v = L.attention_qkv(cfg, bp["self_attn"], h, None, use_rope=False)
     if self_cache is None:
@@ -100,8 +101,9 @@ def _dec_block(cfg, bp, x, cross_kv, *, self_cache=None, pos=None):
         new_kv = (k, v)
     else:
         ck, cv = self_cache
-        spmd.write(ck, pos, k[:, 0])
-        spmd.write(cv, pos, v[:, 0])
+        slot = min(pos, ck.shape[1] - 1)
+        spmd.write(ck, slot, k[:, 0])
+        spmd.write(cv, slot, v[:, 0])
         o = L.flash_attention(q, ck, cv, causal=False, kv_len=pos + 1,
                               kv_chunk=SELF_KV_CHUNK)
         new_kv = (ck, cv)
@@ -174,15 +176,18 @@ def cache_axes(cfg):
 
 
 def decode_step(cfg, params, cache, token, pos: int):
-    """One decoder token at position `pos` (0 <= pos < dec_len); the
-    cross-KV comes from the cache. Returns (logits, new cache): the self
+    """One decoder token at position `pos` >= 0; the cross-KV comes from
+    the cache. At pos >= dec_len it answers as the reference, whose
+    dynamic slices clamp: the last learned position, the last self-cache
+    slot, every slot attended. Returns (logits, new cache): the self
     caches are copied before the new token is written, so `cache` stays
-    as it was."""
-    if not 0 <= pos < cfg.dec_len:
-        raise ValueError(f"decode position {pos} outside the "
+    as it was. A negative pos raises."""
+    if pos < 0:
+        raise ValueError(f"decode position {pos} is before the "
                          f"{cfg.dec_len}-token decoder cache")
     x = T.decode_embed(params, token)
-    x = x + params["pos_emb"][None, pos:pos + 1].to(x.dtype)
+    p = min(pos, cfg.dec_len - 1)
+    x = x + params["pos_emb"][None, p:p + 1].to(x.dtype)
     sk, sv = cache["self_k"].clone(), cache["self_v"].clone()
     for l, bp in enumerate(T.unstack(params["dec"])):
         x, _ = _dec_block(cfg, bp, x, (cache["cross_k"][l],

@@ -89,12 +89,16 @@ def decode_attention(cfg, bp_attn, q, k, v, ctx_k, ctx_v, tail_k, tail_v,
     ctx_*: (b, cap, hkv, hd) read-only, possibly seq-sharded;
     tail_*: (b, DECODE_TAIL, hkv, hd). The new (k, v) is written at
     tail_pos IN PLACE (the reference returns updated copies), on each
-    rank's own block of a DTensor tail. Returns (o, tail_k, tail_v)."""
-    if not 0 <= tail_pos < tail_k.shape[1]:
-        raise ValueError(f"decode position {tail_pos} outside the "
-                         f"{tail_k.shape[1]}-token tail buffer")
-    spmd.write(tail_k, tail_pos, k[:, 0])
-    spmd.write(tail_v, tail_pos, v[:, 0])
+    rank's own block of a DTensor tail. Past the buffer, as the
+    reference's ``dynamic_update_slice`` clamps, it is written into the
+    last slot, and every slot is attended (kv_len tail_pos + 1 covers
+    them all). A negative tail_pos raises. Returns (o, tail_k, tail_v)."""
+    if tail_pos < 0:
+        raise ValueError(f"decode position {tail_pos} is before the tail "
+                         "buffer")
+    slot = min(tail_pos, tail_k.shape[1] - 1)
+    spmd.write(tail_k, slot, k[:, 0])
+    spmd.write(tail_v, slot, v[:, 0])
     p1 = L.flash_attention(q, ctx_k, ctx_v, causal=False,
                            kv_chunk=max(cfg.attn_chunk, 2048),
                            return_stats=True)

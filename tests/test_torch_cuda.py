@@ -13,9 +13,11 @@ torch.set_num_threads(2)
 from repro_torch.compression.quantize import quantize  # noqa: E402
 from repro_torch.configs import SparKVConfig, get_smoke  # noqa: E402
 from repro_torch.kernels.block_sparse_attn import kernel as BK  # noqa: E402
+from repro_torch.kernels.block_sparse_attn import ops as BO  # noqa: E402
 from repro_torch.kernels.block_sparse_attn.ops import \
     block_lists  # noqa: E402
 from repro_torch.kernels.decode_attn import kernel as DK  # noqa: E402
+from repro_torch.kernels.decode_attn import ops as DO  # noqa: E402
 from repro_torch.kernels.kv_dequant import kernel as K  # noqa: E402
 from repro_torch.kernels.kv_dequant import ops as KO  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -49,7 +51,8 @@ def _same_bits(a, b):
     return torch.equal(a.view(view), b.view(view))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("n,width,group", [
     (2048, 512, 64), (37, 128, 64), (129, 128, 32), (5, 192, 64),
     # groups that are not a multiple of 16; at width 20 (group 5) and 36
@@ -114,7 +117,8 @@ BATCHES = [
 SENTINEL = -7.25
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("group,mixed,entries", BATCHES)
 def test_batch_kernel_bit_equal_to_plain(cuda, group, mixed, entries,
                                          dtype):
@@ -266,8 +270,10 @@ def test_moe_block_on_card_matches_cpu(cuda, capacity_factor):
 
 # attention tolerances of tests/test_kernels.py, compared in fp32, scaled
 # down where the reference's largest magnitude is under 1 (long random
-# caches average their values towards 0)
-ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# caches average their values towards 0); fp16 that of
+# tests/test_torch_kernel_shapes.py (two fp16 steps at magnitudes under 4:
+# each version rounds p and the output on its own)
+ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 4e-3}
 
 
 def _close(out, ref, dtype):
@@ -491,19 +497,29 @@ def test_attention_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     with pytest.raises(ValueError):        # hq not a multiple of hkv
         DK.decode_attention(_randn(gen, (1, 5, 64), torch.float32, cuda),
                             dk, dk, 10)
-    with pytest.raises(ValueError):        # 17 query heads per kv head
-        DK.decode_attention(_randn(gen, (1, 34, 64), torch.float32, cuda),
-                            dk, dk, 10)
-    q48 = _randn(gen, (1, 8, 48), torch.float32, cuda)
-    k48 = _randn(gen, (1, 100, 2, 48), torch.float32, cuda)
-    with pytest.raises(ValueError):        # head size 48
-        DK.decode_attention(q48, k48, k48, 10)
-    b48 = _randn(gen, (2, 256, 48), torch.float32, cuda)
-    with pytest.raises(ValueError):        # head size 48
-        BK.block_sparse_attention(b48, b48, b48, idx, cnt)
     with pytest.raises(ValueError):        # 3 q rows over 2 kv rows
         BK.block_sparse_attention(_randn(gen, (3, 256, 64), torch.float32,
                                          cuda), q, q, idx, cnt, kv_group=1)
+    big = torch.zeros((2, 256, 4097), device=cuda)
+    with pytest.raises(ValueError, match="limit"):   # d past 4096
+        BK.block_sparse_attention(big, big, big, idx, cnt)
+    dbig = torch.zeros((1, 2, 2049), device=cuda)
+    with pytest.raises(ValueError, match="limit"):   # d past 2048
+        DK.decode_attention(dbig, dbig[:, None], dbig[:, None], 1)
+    # once refused, now taken by the generic kernels: 17 query heads per
+    # kv head, head size 48
+    q34 = _randn(gen, (1, 34, 64), torch.float32, cuda)
+    assert _close(DK.decode_attention(q34, dk, dk, 10),
+                  DK.decode_attention_plain(q34, dk, dk, 10), torch.float32)
+    q48 = _randn(gen, (1, 8, 48), torch.float32, cuda)
+    k48 = _randn(gen, (1, 100, 2, 48), torch.float32, cuda)
+    assert _close(DK.decode_attention(q48, k48, k48, 10),
+                  DK.decode_attention_plain(q48, k48, k48, 10),
+                  torch.float32)
+    b48 = _randn(gen, (2, 256, 48), torch.float32, cuda)
+    assert _close(BK.block_sparse_attention(b48, b48, b48, idx, cnt),
+                  BK.block_sparse_attention_plain(b48, b48, b48, idx, cnt),
+                  torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -522,6 +538,149 @@ def test_decode_every_group(cuda, g, dtype):
     plain = DK.decode_attention_plain(q, k, v, 650)
     torch.cuda.synchronize()
     assert _close(out, plain, dtype)
+
+
+# the shapes of tests/test_torch_kernel_shapes.py: (head size, (q_block,
+# kv_block), group) over 120 tokens, and decode's (head size, group)
+GENERIC_BSA = [(48, (24, 24), 3), (48, (8, 8), 1), (96, (8, 8), 3),
+               (96, (40, 20), 1), (160, (40, 20), 1), (160, (24, 24), 3),
+               (512, (8, 8), 1), (512, (40, 20), 3)]
+GENERIC_DEC = [(d, g) for d in (48, 96, 512) for g in (20, 32)]
+DTYPES3 = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _launched(counts, fn):
+    before = dict(counts)
+    out = fn()
+    return out, {k: counts[k] - before[k] for k in counts if
+                 counts[k] != before[k]}
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,blocks,g", GENERIC_BSA)
+def test_block_sparse_generic_matches_plain(cuda, d, blocks, g, causal,
+                                            dtype):
+    """The generic kernel, one launch a call and no fast launch, against
+    the plain version on lists with holes and on the lists of mass 0.9."""
+    (qb, kb), s = blocks, 120
+    gen = torch.Generator(device=cuda).manual_seed(d + qb + g)
+    q = _randn(gen, (2 * g, s, d), dtype, cuda)
+    k = _randn(gen, (2, s, d), dtype, cuda)
+    v = _randn(gen, (2, s, d), dtype, cuda)
+    holes = _lists_with_holes(gen, 2 * g, s // qb, s // kb, cuda)
+    lists = block_lists(q, k, g, mass=0.9, q_block=qb, kv_block=kb,
+                        causal=causal)
+    for idx, cnt, seen, seen_cnt in (holes, (*lists, *lists)):
+        kw = dict(causal=causal, q_block=qb, kv_block=kb, kv_group=g)
+        out, n = _launched(BK.LAUNCHES, lambda: BK.block_sparse_attention(
+            q, k, v, idx, cnt, **kw))
+        assert n == {"block_sparse_attention_generic": 1}
+        plain = BK.block_sparse_attention_plain(q, k, v, seen, seen_cnt,
+                                                **kw)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and _close(out, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("d,g", GENERIC_DEC)
+def test_decode_generic_matches_plain(cuda, d, g, dtype):
+    """The generic kernel over one split (kv_len 301) and many (5000),
+    one launch a call, and kv_len 0 (zeros)."""
+    gen = torch.Generator(device=cuda).manual_seed(d + g)
+    q = _randn(gen, (2, 2 * g, d), dtype, cuda)
+    k = _randn(gen, (2, 5120, 2, d), dtype, cuda)
+    v = _randn(gen, (2, 5120, 2, d), dtype, cuda)
+    for kv_len in (301, 5000, 0):
+        out, n = _launched(DK.LAUNCHES, lambda: DK.decode_attention(
+            q, k, v, kv_len))
+        assert n == {"decode_attention_generic": 1}
+        plain = DK.decode_attention_plain(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and _close(out, plain, dtype)
+        if kv_len == 0:
+            assert not out.any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp16_on_the_tensor_cores(cuda, causal):
+    """fp16 at Qwen3-4B's heads (32 over 8 of 128) takes the fast
+    kernels: block-sparse at 128- and 32-row blocks, decode at 2048."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    dt = torch.float16
+    q = _randn(gen, (32, 512, 128), dt, cuda)
+    k = _randn(gen, (8, 512, 128), dt, cuda)
+    v = _randn(gen, (8, 512, 128), dt, cuda)
+    for blk in (128, 32):
+        idx, cnt = block_lists(q, k, 4, mass=0.95, q_block=blk,
+                               kv_block=blk, causal=causal)
+        kw = dict(causal=causal, q_block=blk, kv_block=blk, kv_group=4)
+        out, n = _launched(BK.LAUNCHES, lambda: BK.block_sparse_attention(
+            q, k, v, idx, cnt, **kw))
+        assert n == {"block_sparse_attention": 1}
+        assert _close(out, BK.block_sparse_attention_plain(q, k, v, idx,
+                                                           cnt, **kw), dt)
+    dq = _randn(gen, (1, 32, 128), dt, cuda)
+    dk = _randn(gen, (1, 2048, 8, 128), dt, cuda)
+    out, n = _launched(DK.LAUNCHES, lambda: DK.decode_attention(
+        dq, dk, dk, 2048))
+    assert n == {"decode_attention": 1}
+    assert _close(out, DK.decode_attention_plain(dq, dk, dk, 2048), dt)
+
+
+def test_ops_copy_other_layouts_and_count_it(cuda):
+    """The ops layer takes q, k, v in any layout: a transposed or
+    misaligned input is copied (counted in COPIES) and the result equals
+    the kernel's on dense inputs; dense inputs are not copied."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(gen, (4, 256, 64), torch.bfloat16, cuda)
+    k = _randn(gen, (2, 256, 64), torch.bfloat16, cuda)
+    idx, cnt = block_lists(q, k, 2, mass=0.9, q_block=64, kv_block=64,
+                           causal=True)
+    kw = dict(q_block=64, kv_block=64, kv_group=2)
+    dense = BO.block_sparse_attention(q, k, k, idx, cnt, **kw)
+    c0 = BO.COPIES["block_sparse_attention"]
+    qt = q.transpose(0, 1).contiguous().transpose(0, 1)
+    flat = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
+    kmis = flat[1:].view(k.shape)
+    kmis.copy_(k)
+    out = BO.block_sparse_attention(qt, kmis, k, idx, cnt, **kw)
+    assert BO.COPIES["block_sparse_attention"] == c0 + 2
+    assert torch.equal(out, dense)
+    dq = _randn(gen, (1, 8, 64), torch.float32, cuda)
+    dk = _randn(gen, (1, 300, 2, 64), torch.float32, cuda)
+    c0 = DO.COPIES["decode_attention"]
+    ref = DO.decode_attention(dq, dk, dk, 300)
+    assert DO.COPIES["decode_attention"] == c0
+    wide = torch.zeros((1, 300, 2, 128), device=cuda)
+    wide[..., :64] = dk
+    out = DO.decode_attention(dq, wide[..., :64], wide[..., :64], 300)
+    assert DO.COPIES["decode_attention"] == c0 + 2
+    assert torch.equal(out, ref)
+
+
+def test_grids_past_65535(cuda):
+    """bh past 65535 in block-sparse (fp32 on the flattened grid of the
+    fast kernel, bf16 on gridDim.x) and b past 65535 in decode (the
+    generic kernel's folded grid)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for dt in (torch.float32, torch.bfloat16):
+        q = _randn(gen, (70000, 16, 64), dt, cuda)
+        idx = torch.zeros((70000, 1, 1), dtype=torch.int32, device=cuda)
+        cnt = torch.ones((70000, 1), dtype=torch.int32, device=cuda)
+        kw = dict(q_block=16, kv_block=16)
+        out, n = _launched(BK.LAUNCHES, lambda: BK.block_sparse_attention(
+            q, q, q, idx, cnt, **kw))
+        assert n == {"block_sparse_attention": 1}
+        assert _close(out, BK.block_sparse_attention_plain(q, q, q, idx,
+                                                           cnt, **kw), dt)
+    dq = _randn(gen, (70000, 2, 32), torch.bfloat16, cuda)
+    dk = _randn(gen, (70000, 40, 1, 32), torch.bfloat16, cuda)
+    out, n = _launched(DK.LAUNCHES, lambda: DK.decode_attention(
+        dq, dk, dk, 33))
+    assert n == {"decode_attention_generic": 1}
+    assert _close(out, DK.decode_attention_plain(dq, dk, dk, 33),
+                  torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------

@@ -102,6 +102,12 @@ def run():
     other = (dec[:, STEPS] + 1) % jcfg.vocab_size
     lg, _ = step(jp, cache, jnp.asarray(other), jnp.int32(STEPS))
     out["j_other"] = np.asarray(lg), other
+    # past the self-attention cache, where the reference's slices clamp
+    out["j_past"] = {}
+    for pos in (jcfg.dec_len, jcfg.dec_len + 5):
+        lg, new = step(jp, cache, jnp.asarray(dec[:, STEPS]), jnp.int32(pos))
+        out["j_past"][pos] = (np.asarray(lg), np.asarray(new["self_k"]),
+                              np.asarray(new["self_v"]))
     return out
 
 
@@ -161,14 +167,24 @@ def test_two_decodes_from_one_cache(run):
 
 
 def test_decode_position_bound(run):
-    """The reference clamps a position past its self-attention cache
-    onto the last slot; the port refuses it."""
+    """Past the self-attention cache (dec_len and dec_len + 5) the port
+    answers as the reference, whose slices clamp: the last learned
+    position, the new K/V in the last slot, every slot attended (logits
+    and self caches within ATOL). A negative position, which no entry
+    point of either package reaches, stays refused."""
     cfg, tm, tp = run["tcfg"], run["tm"], run["tp"]
-    cache = tm.init_cache(B, S_ENC, device="cpu")
-    tok = torch.zeros(B, dtype=torch.int64)
-    for pos in (cfg.dec_len, cfg.dec_len + 5, -1):
-        with pytest.raises(ValueError):
-            tm.decode_step(tp, cache, tok, pos)
+    tok = torch.from_numpy(run["dec"][:, STEPS])
+    for pos, (ref, ref_k, ref_v) in run["j_past"].items():
+        cache = {k: torch.from_numpy(v.copy())
+                 for k, v in run["j_cache"].items()}
+        lg, new = tm.decode_step(tp, cache, tok, pos)
+        _close(lg, ref, what=f"logits at {pos}")
+        _close(new["self_k"], ref_k, what=f"self_k at {pos}")
+        _close(new["self_v"], ref_v, what=f"self_v at {pos}")
+        assert not torch.equal(new["self_k"][:, :, -1],
+                               cache["self_k"][:, :, -1])
+    with pytest.raises(ValueError):
+        tm.decode_step(tp, tm.init_cache(B, S_ENC, device="cpu"), tok, -1)
 
 
 def test_decode_matches_teacher_forced_bf16():

@@ -15,8 +15,9 @@ torch.Generator on the card:
 - block-sparse, bf16: q (32 heads, 8192 tokens, 128), k/v (8 heads), the
   causal lists of kernels/block_sparse_attn/ops.block_lists at the
   serving mass 0.98 (path C's shape; path C takes layer 0's q/k/v of
-  random weights instead of random q/k/v); and path K's gemma-2b (8/1 heads
-  of 256) and zamba2-2.7b (32/32 heads of 80) shapes over 2048 tokens;
+  random weights instead of random q/k/v), and the same in fp32 (the
+  CUDA-core kernel); and path K's gemma-2b (8/1 heads of 256) and
+  zamba2-2.7b (32/32 heads of 80) shapes over 2048 tokens;
 - decode, bf16: q (1, 32, 128) over k/v (1, 32768, 8, 128) at kv_len
   2048 (path D) and 32000 (path D's long cache);
 - dequant, fp32 out: a cachegen request of path A (144 chunk tensors of
@@ -66,6 +67,11 @@ out = {{"tree": {root!r}, "card": torch.cuda.get_device_name(0),
         "tiles": int(cnt.sum())}}
 out["block_sparse_ms"] = time_ms(
     lambda: BK.block_sparse_attention(q, k, v, idx, cnt, kv_group=4), flush)
+q32, k32, v32 = (x.float() for x in (q, k, v))
+out["block_sparse_fp32_ms"] = time_ms(
+    lambda: BK.block_sparse_attention(q32, k32, v32, idx, cnt, kv_group=4),
+    flush)
+del q32, k32, v32
 for name, hq, hkv, d in (("d256", 8, 1, 256), ("d80", 32, 32, 80)):
     sq, sk, sv = (torch.randn((h, 2048, d), generator=gen,
                               device=dev).to(bf) for h in (hq, hkv, hkv))
