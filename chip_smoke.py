@@ -62,12 +62,13 @@ Phases, in order; any failure exits non-zero:
      at 2048 and 32,000), timed beside bf16; the generic kernels at a
      full width (32/8 heads of 96 over 2040 tokens in 24-row blocks;
      40/2 heads of 96 at kv_len 32,000) in the three types, timed beside
-     their plain versions, bounds and SDPA; other layouts through the
-     ops layer (copied, counted); one sparkv request on path A's server
-     with 130 new tokens, past the 128-slot tail buffer, in one
-     kv_dequant launch, and its streamed chunks dequantized into fp16
-     caches in one launch, bit-equal to the plain version. Every kernel
-     call runs with the plain versions replaced by ones that raise;
+     their plain versions, bounds and SDPA (and the kernel's time over
+     SDPA's); other layouts through the ops layer (copied, counted); one
+     sparkv request on path A's server with 130 new tokens, past the
+     128-slot tail buffer, in one kv_dequant launch, and its streamed
+     chunks dequantized into fp16 caches in one launch, bit-equal to the
+     plain version, timed in turns with torch.addcmul into fp16. Every
+     kernel call runs with the plain versions replaced by ones that raise;
   9. path E1: SparKVServer.serve_fleet on path A's server and context: 32
      jobs, seeded Poisson arrivals, the policies sparkv, strong_hybrid,
      cachegen and local_prefill mixed, a 2-slot WFQ run queue, SLO
@@ -1326,7 +1327,7 @@ def o_generic_full_width(err, device, gen, count, *, n_tokens=2048,
               f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
               f"{p['bound_ms']:.6f} ms ({p['bound_by']}, "
               f"{p['bound_ms'] / ms:.1%}), SDPA with the block mask "
-              f"{lib:.6f} ms", flush=True)
+              f"{lib:.6f} ms, kernel/SDPA {ms / lib:.3f}x", flush=True)
         if dn == "bfloat16":
             perf["block_sparse_attention_generic"] = p
         dq = dq0.to(dt)
@@ -1346,7 +1347,8 @@ def o_generic_full_width(err, device, gen, count, *, n_tokens=2048,
         print(f"[path O] decode_attention_generic {dn} 40/2x{hd} len "
               f"{long_len}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
               f"bound {p['bound_ms']:.6f} ms ({p['bound_by']}, "
-              f"{p['bound_ms'] / ms:.1%}), SDPA {lib:.6f} ms", flush=True)
+              f"{p['bound_ms'] / ms:.1%}), SDPA {lib:.6f} ms, kernel/SDPA "
+              f"{ms / lib:.3f}x", flush=True)
         if dn == "bfloat16":
             perf["decode_attention_generic"] = p
     return perf
@@ -1430,15 +1432,27 @@ def o_request(srv, seen, cid, device, count, *, seed=0, max_new=130):
                                                   outs["plain"]))
     check(same, "path O: fp16 dequant differs from the plain version")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    ms = time_ms(lambda: K.dequant_batch(batches["kernel"]), flush)
+    b = batches["kernel"]
+    kern = lambda: K.dequant_batch(b)
+    if b.mixed:
+        ms, lib_ms = time_ms(kern, flush), None
+    else:  # the one torch call of the same values into fp16, in turns
+        n_groups = b.params.numel()
+        lib_out = torch.empty((n_groups, b.group), dtype=torch.float16,
+                              device=device)
+        ms, lib_ms = time_in_turns(kern, lambda: torch.addcmul(
+            b.zeros[:, None], b.codes[:n_groups * b.group].view(
+                n_groups, b.group), b.params[:, None], out=lib_out), flush)
     plain_ms = time_ms(lambda: K.dequant_batch_plain(batches["plain"]),
                        flush, n=10)
     nbytes = _batch_bytes(qts, out_bytes=2)[0]
-    p = _perf(0.0, ms, plain_ms, None, nbytes, 0, BF16_FLOPS)
+    p = _perf(0.0, ms, plain_ms, lib_ms, nbytes, 0, BF16_FLOPS)
     print(f"[path O] kv_dequant to fp16 over the request's {len(qts)} "
           f"streamed chunk tensors: one launch, bit-equal={same}; kernel "
-          f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
-          f"{p['bound_ms']:.6f} ms ({p['bound_by']}, "
+          f"{ms:.6f} ms, plain {plain_ms:.6f} ms, "
+          + (f"torch.addcmul into fp16 {lib_ms:.6f} ms, " if lib_ms else
+             "library none (a division and an addcmul), ")
+          + f"bound {p['bound_ms']:.6f} ms ({p['bound_by']}, "
           f"{p['bound_ms'] / ms:.1%})", flush=True)
 
 

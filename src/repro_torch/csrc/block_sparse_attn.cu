@@ -18,7 +18,18 @@
 // and blocks that are multiples of 16: bf16 and fp16 on the tensor cores
 // (bsa_tc_kernel), fp32 on the CUDA cores (block_sparse_attn_kernel).
 // The generic kernel (bsa_generic_kernel, at the end) takes every other
-// shape the reference takes, in all three types.
+// shape the reference takes, in all three types: any head size to 4096,
+// any q_block and kv_block. It is the tiled engine of generic_attn.cuh: a
+// CTA takes up to 64 rows of one q-block (32 in fp32) and walks its list
+// in 8-row segments, so a kv block of any size fills 64-key sub-tiles
+// (24 rows: three segments), staged once by 16-byte cp.async for all the
+// CTA's rows; bf16 and fp16 on the tensor cores (the fast kernel's
+// fragments, a run-time count of k-steps under a tier of 64, 128 or 256
+// columns), fp32 on the CUDA cores (4 x 2 of S and 4 x 4 * tier / 64 of O
+// a thread). Past 256 columns, O's columns are split over the grid's y.
+// What bounds it at blocks under 64 rows: the latency of each sub-tile's
+// walk, copies and products against few rows (24 rows re-read each listed
+// tile from L2 for 24 queries), not the tensor cores (PERF.md §6).
 //
 // Block sizes (the fast kernels): q_block and kv_block are any multiples
 // of 16 (the m16 of mma.sync). A CTA takes rows of one q-block: the most
@@ -85,6 +96,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "generic_attn.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -722,96 +734,118 @@ int launch_fp32(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// Any head size, block size and float type on the CUDA cores
+// Any head size, block size and float type: the tiled generic kernel
 // ---------------------------------------------------------------------------
 
-constexpr int GEN_WARPS = 4;              // query rows a CTA, a warp each
-constexpr int GEN_KEYS = 8;               // keys a warp takes at a time
-constexpr long long kMaxGrid = 1 << 20;   // CTAs; the grid strides past it
-
-// One warp a query row: rows in (bh, row) order, GEN_WARPS a CTA, the grid
-// striding over them. Lane l owns columns l, l + 32, ... of the row's q and
-// fp32 accumulator, which live in dynamic shared memory ([GEN_WARPS][2][d]
-// floats; each lane reads and writes only its own columns, so no barrier
-// is needed). The warp walks its q-block's list in list order, skipping
-// entries outside [0, skv / kv_block), and each listed block up to the
-// row's own position under the causal mask, GEN_KEYS keys at a time
-// (mma_sm90.cuh, softmax_keys): the dot products over the lanes' columns,
-// reduced by shuffles, the online softmax in fp32, p rounded to the
-// element type for the PV product (the Pallas kernel's p.astype(v.dtype))
-// while l sums the unrounded p; the output is rounded to the element type
-// at the store. Bound by the latency of each group of keys and the fp32
-// FMA rate, not by bytes: the kernel for the shapes that bsa_tc_kernel and
-// block_sparse_attn_kernel do not take.
-template <typename T>
-__global__ void __launch_bounds__(GEN_WARPS * 32)
-bsa_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v,
+// One CTA takes up to Eng::kRows rows of one q-block (64 on the tensor
+// cores, 32 in fp32; a longer q-block takes several CTAs) and walks the
+// q-block's list in 8-row segments (generic_attn.cuh), every row sharing
+// each staged sub-tile. Grid: x = bh * n_qb * n_rc CTAs, the (q-block, row
+// chunk) slowest and reversed, so that under the causal mask the heaviest
+// q-blocks start first; y = O's 256-column chunks (BIG, d past 256).
+template <class Eng, bool BIG>
+__global__ void __launch_bounds__(gen::kThreads)
+bsa_generic_kernel(const typename Eng::E* __restrict__ q,
+                   const typename Eng::E* __restrict__ k,
+                   const typename Eng::E* __restrict__ v,
                    const int32_t* __restrict__ block_idx,
-                   const int32_t* __restrict__ block_cnt, T* __restrict__ o,
-                   int bh_total, int sq, int skv, int d, int n_qb,
-                   int max_nnz, int q_block, int kv_block, int kv_group,
-                   int causal, float scale_log2) {
+                   const int32_t* __restrict__ block_cnt,
+                   typename Eng::E* __restrict__ o, int bh_total, int sq,
+                   int skv, int d, int n_qb, int max_nnz, int q_block,
+                   int kv_block, int kv_group, int causal, float scale_log2,
+                   int n_rc) {
+  using E = typename Eng::E;
   extern __shared__ float4 smem4[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* qs = reinterpret_cast<float*>(smem4) + (size_t)warp * 2 * d;
-  float* acc = qs + d;
-  const int n_kb = skv / kv_block;
-  const long long n_rows = (long long)bh_total * sq;
-  for (long long r = (long long)blockIdx.x * GEN_WARPS + warp; r < n_rows;
-       r += (long long)gridDim.x * GEN_WARPS) {
-    const int bh = (int)(r / sq);
-    const int row = (int)(r - (long long)bh * sq);
-    const int qb = row / q_block;
-    const T* qp = q + (size_t)r * d;
-    for (int c = lane; c < d; c += 32) {
-      qs[c] = to_f32(qp[c]);
-      acc[c] = 0.f;
-    }
-    const size_t kv_off = (size_t)(bh / kv_group) * skv * d;
-    const T* kp = k + kv_off;
-    const T* vp = v + kv_off;
-    const int32_t* list = block_idx + ((size_t)bh * n_qb + qb) * max_nnz;
-    const int n_list = min(block_cnt[(size_t)bh * n_qb + qb], max_nnz);
-    float m = -INFINITY, l = 0.f;
-    for (int t = 0; t < n_list; ++t) {
-      const int kb = __ldg(list + t);
-      if (kb < 0 || kb >= n_kb) continue;
-      const int j0 = kb * kv_block;
-      const int j1 = causal ? min(j0 + kv_block, row + 1) : j0 + kv_block;
-      for (int j = j0; j < j1; j += GEN_KEYS)
-        softmax_keys<GEN_KEYS>(qs, acc, kp + (size_t)j * d,
-                               vp + (size_t)j * d, (size_t)d,
-                               min(GEN_KEYS, j1 - j), d, lane, scale_log2,
-                               m, l);
-    }
-    T* op = o + (size_t)r * d;
-    for (int c = lane; c < d; c += 32)
-      op[c] = from_f32<T>(l > 0.f ? acc[c] / l : 0.f);
-  }
+  const long long x = blockIdx.x;
+  const int bh = (int)(x % bh_total);
+  const int qrc = n_qb * n_rc - 1 - (int)(x / bh_total);  // heaviest first
+  const int qb = qrc / n_rc, rc = qrc - qb * n_rc;
+  const int row0 = qb * q_block + rc * Eng::kRows;
+  const int R = min(Eng::kRows, q_block - rc * Eng::kRows);
+  const size_t kv_off = (size_t)(bh / kv_group) * skv * d;
+  const size_t list0 = (size_t)bh * n_qb + qb;
+  gen::ListWalk<Eng::kKeys / gen::kSegRows> walk{
+      block_idx + list0 * max_nnz, min(block_cnt[list0], max_nnz),
+      skv / kv_block, kv_block, causal, row0 + R - 1, -1, -1, 0};
+  const int c0 = BIG ? blockIdx.y * gen::kChunk : 0;
+  E* op = o + ((size_t)bh * sq + row0) * d + c0;
+  Eng eng;
+  gen::attend<Eng, BIG>(
+      eng, reinterpret_cast<E*>(smem4), walk,
+      q + ((size_t)bh * sq + row0) * d, (size_t)d, R, k + kv_off,
+      v + kv_off, (size_t)d, d, blockIdx.y, causal, row0, scale_log2,
+      [&](int r, int c, float, float l, float a) {
+        op[(size_t)r * d + c] = from_f32<E>(l > 0.f ? a / l : 0.f);
+      });
 }
 
-template <typename T>
+template <class Eng, bool BIG>
 int launch_generic(const void* q, const void* k, const void* v,
                    const void* idx, const void* cnt, void* o, int bh, int sq,
                    int skv, int d, int n_qb, int max_nnz, int q_block,
                    int kv_block, int kv_group, int causal, float scale,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 2 * GEN_WARPS * (size_t)d;
-  auto kern = bsa_generic_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long want = ((long long)bh * sq + GEN_WARPS - 1) / GEN_WARPS;
-  const int grid = (int)(want < kMaxGrid ? want : kMaxGrid);
-  kern<<<grid, GEN_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(idx),
-      static_cast<const int32_t*>(cnt), static_cast<T*>(o), bh, sq, skv, d,
+  using E = typename Eng::E;
+  auto kern = bsa_generic_kernel<Eng, BIG>;
+  static bool configured = false;  // once a kernel: the most it may ask for
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int n_rc = (q_block + Eng::kRows - 1) / Eng::kRows;
+  const long long ctas = (long long)bh * n_qb * n_rc;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)ctas, gen::col_chunks(d));
+  kern<<<grid, gen::kThreads, gen::smem_bytes<Eng>(d), stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const int32_t*>(idx),
+      static_cast<const int32_t*>(cnt), static_cast<E*>(o), bh, sq, skv, d,
       n_qb, max_nnz, q_block, kv_block, kv_group, causal,
-      scale * 1.4426950408889634f);
+      scale * 1.4426950408889634f, n_rc);
   return (int)cudaGetLastError();
 }
+
+// The instance of a head size's tier (64, 128, 256 columns, or 256-column
+// chunks: BIG) and, on the tensor cores, of a q-block's row tiles (the
+// groups of 16 keys a warp takes: gen::Tc's NG; BIG takes 4).
+#define BSA_PARAMS                                                          \
+  const void *q, const void *k, const void *v, const void *idx,             \
+      const void *cnt, void *o, int bh, int sq, int skv, int d, int n_qb,   \
+      int max_nnz, int q_block, int kv_block, int kv_group, int causal,     \
+      float scale, cudaStream_t s
+#define BSA_ARGS                                                            \
+  q, k, v, idx, cnt, o, bh, sq, skv, d, n_qb, max_nnz, q_block, kv_block,   \
+      kv_group, causal, scale, s
+
+template <typename T>
+int launch_generic_tc(BSA_PARAMS) {
+  const int n_rt = (min(q_block, 64) + 15) / 16;
+  if (d > gen::kChunk)
+    return launch_generic<gen::Tc<T, 256, 4>, true>(BSA_ARGS);
+#define TC_NG(TT)                                                           \
+  if (n_rt == 1) return launch_generic<gen::Tc<T, TT, 1>, false>(BSA_ARGS); \
+  if (n_rt == 2) return launch_generic<gen::Tc<T, TT, 2>, false>(BSA_ARGS); \
+  return launch_generic<gen::Tc<T, TT, 4>, false>(BSA_ARGS);
+  switch (gen::tier_of(d)) {
+    case 64: { TC_NG(64) }
+    case 128: { TC_NG(128) }
+    default: { TC_NG(256) }
+  }
+#undef TC_NG
+}
+
+int launch_generic_fp32(BSA_PARAMS) {
+  if (d > gen::kChunk) return launch_generic<gen::Simt<256>, true>(BSA_ARGS);
+  switch (gen::tier_of(d)) {
+    case 64: return launch_generic<gen::Simt<64>, false>(BSA_ARGS);
+    case 128: return launch_generic<gen::Simt<128>, false>(BSA_ARGS);
+    default: return launch_generic<gen::Simt<256>, false>(BSA_ARGS);
+  }
+}
+#undef BSA_ARGS
+#undef BSA_PARAMS
 
 }  // namespace
 
@@ -861,10 +895,10 @@ int block_sparse_attention_launch(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// The generic kernel (bsa_generic_kernel): any d >= 1 whose 2 * 4 * d
-// floats of shared memory a CTA can hold, any q_block and kv_block, dtype
-// 0 fp32, 1 bf16, 2 fp16. The wrapper has checked sq % q_block == 0 and
-// skv % kv_block == 0.
+// The generic kernel (bsa_generic_kernel): any d >= 1, any q_block and
+// kv_block, dtype 0 fp32, 1 bf16, 2 fp16. The wrapper has checked sq %
+// q_block == 0, skv % kv_block == 0 and bh * n_qb * ceil(q_block / 32) <
+// 2^31.
 int block_sparse_attention_generic_launch(
     const void* q, const void* k, const void* v, const void* block_idx,
     const void* block_cnt, void* o, int bh, int sq, int skv, int d, int n_qb,
@@ -876,9 +910,9 @@ int block_sparse_attention_generic_launch(
   q, k, v, block_idx, block_cnt, o, bh, sq, skv, d, n_qb, max_nnz, q_block, \
       kv_block, kv_group, causal, scale, s
   switch (dtype) {
-    case 0: return launch_generic<float>(BSA_ARGS);
-    case 1: return launch_generic<bf16>(BSA_ARGS);
-    case 2: return launch_generic<f16>(BSA_ARGS);
+    case 0: return launch_generic_fp32(BSA_ARGS);
+    case 1: return launch_generic_tc<bf16>(BSA_ARGS);
+    case 2: return launch_generic_tc<f16>(BSA_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef BSA_ARGS

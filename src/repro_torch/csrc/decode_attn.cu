@@ -36,7 +36,15 @@
 // launch raises. The fast kernels take head sizes 32, 64, 80, 128 and
 // 256, 1 to 16 query heads a kv head, and b and hkv under 65536; the
 // generic kernel (decode_generic_kernel, at the end) every other shape
-// the reference takes, in fp32, bf16 and fp16, on the same split.
+// the reference takes, in fp32, bf16 and fp16: the tiled engine of
+// generic_attn.cuh with the g query heads of a kv head as the rows of its
+// tiles (64 a CTA on the tensor cores, 32 in fp32), so each split's keys
+// are read once for all of them. Its split is its own
+// (kernel.py::split_plan_generic): enough splits that the launch has a
+// CTA an SM at least, where the fast kernels' clusters of at most 16
+// leave a card with two kv heads at 32 CTAs; the partials meet in a
+// workspace that decode_combine_kernel reads in a second launch of the
+// same call.
 // - bf16, fp16 -> decode_tc_kernel<T>, the tensor cores (the fp16
 //   mma.sync has the bf16 one's shape and fragments). The g query heads
 //   are the rows of an mma.sync m16n8k16 A operand (padded to 16 with
@@ -75,6 +83,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "generic_attn.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -87,7 +96,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;       // cp.async ring depth
 constexpr int kMaxCluster = 16;  // splits of a (batch, kv head), non-portable
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kGenKeys = 8;      // keys a warp of the generic kernel takes
 
 __device__ __forceinline__ void store(float* o, float x) { *o = x; }
 __device__ __forceinline__ void store(bf16* o, float x) {
@@ -646,112 +654,206 @@ int launch_fp32_g(int g, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// Any head size, group and float type on the CUDA cores
+// Any head size, group and float type: the tiled generic kernel
 // ---------------------------------------------------------------------------
 
-// A CTA takes kWarps query heads of one (batch, kv head), a warp a head,
-// over one split's keys. Lane l owns columns l, l + 32, ... of its head's
-// q and fp32 accumulator, in dynamic shared memory (each lane reads and
-// writes only its own columns until the combine). The warp walks its
-// split's keys kGenKeys at a time (mma_sm90.cuh, softmax_keys): the dot
-// products over the lanes' columns, reduced by shuffles, the online
-// softmax in fp32, p rounded to the element type for the PV product while
-// l sums the unrounded p. The splits of a (batch, kv head, head group)
-// are one cluster and combine through distributed shared memory as in
-// finish(); the output is rounded to the element type at the store. Bound
-// by the latency of each group of keys, not bytes: the kernel for the
-// shapes the others do not take.
-//
-// Grid: (n_split, gy, gz) with gy * gz >= n_items = b * hkv * n_hg items
-// (batch, kv head, head group), in that order with the head group
-// fastest; clusters of (n_split, 1, 1). Dynamic shared: q [kWarps][d],
-// acc [kWarps][d], m [kWarps], l [kWarps] floats.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ out, int skv,
-                      int hq, int hkv, int d, int g, int n_hg,
-                      long long n_items, int kv_len, int chunk,
-                      float scale_log2) {
+// One CTA takes the g query heads of a (batch, kv head) as its rows (up to
+// Eng::kRows: 64 on the tensor cores, 32 in fp32; more heads take several
+// CTAs, side by side in the grid, so that their reads of a split meet in
+// L2) over one split's keys (generic_attn.cuh), so the kv head's keys are
+// read once a split. The splits are the wrapper's (kernel.py::
+// split_plan_generic): enough to give the launch a CTA an SM at least.
+// With one split the CTA writes the output; with more, its partial (m, l
+// and the unnormalised fp32 O of each head) goes to the workspace ws, and
+// decode_combine_kernel merges them in a second launch on the same stream.
+// Grid: x = b * hkv * n_hc * n_split, the split fastest; y = O's
+// 256-column chunks (BIG, d past 256).
+template <class Eng, bool BIG>
+__global__ void __launch_bounds__(gen::kThreads)
+decode_generic_kernel(const typename Eng::E* __restrict__ q,
+                      const typename Eng::E* __restrict__ k,
+                      const typename Eng::E* __restrict__ v,
+                      typename Eng::E* __restrict__ out,
+                      float* __restrict__ ws, int skv, int hq, int hkv,
+                      int d, int g, int n_hc, int kv_len, int chunk,
+                      int n_split, long long n_heads, float scale_log2) {
+  using E = typename Eng::E;
   extern __shared__ float4 smem4[];
-  float* base = reinterpret_cast<float*>(smem4);
-  const long long item = blockIdx.y + (long long)gridDim.y * blockIdx.z;
-  if (item >= n_items) return;  // the whole cluster leaves together
-  const int split = blockIdx.x, n_split = gridDim.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hg = (int)(item % n_hg);
-  const long long pair = item / n_hg;
-  const int hi = (int)(pair % hkv);
-  const long long bi = pair / hkv;
-  const int h0 = hg * kWarps;                 // the group's first head
-  const int hn = min(kWarps, g - h0);         // its heads
-  float* qs = base + (size_t)warp * d;
-  float* acc = base + (size_t)(kWarps + warp) * d;
-  float* cm = base + (size_t)2 * kWarps * d;  // m [kWarps], then l
-  float* cl = cm + kWarps;
+  long long x = blockIdx.x;
+  const int split = (int)(x % n_split);
+  x /= n_split;
+  const int hc = (int)(x % n_hc);
+  x /= n_hc;
+  const int hi = (int)(x % hkv);
+  const long long bi = x / hkv;
+  const int h0 = hc * Eng::kRows, R = min(Eng::kRows, g - h0);
   const size_t head0 = (size_t)bi * hq + (size_t)hi * g + h0;
-
-  float m = -INFINITY, l = 0.f;
-  if (warp < hn) {
-    const T* qp = q + (head0 + warp) * d;
-    for (int c = lane; c < d; c += 32) {
-      qs[c] = to_f32(qp[c]);
-      acc[c] = 0.f;
-    }
-    const int t0 = split * chunk;
-    const int n = max(0, min(chunk, kv_len - t0));  // valid keys here
-    const size_t row_stride = (size_t)hkv * d;
-    const T* kp = k + ((size_t)bi * skv + t0) * row_stride + (size_t)hi * d;
-    const T* vp = v + ((size_t)bi * skv + t0) * row_stride + (size_t)hi * d;
-    for (int t = 0; t < n; t += kGenKeys)
-      softmax_keys<kGenKeys>(qs, acc, kp + (size_t)t * row_stride,
-                             vp + (size_t)t * row_stride, row_stride,
-                             min(kGenKeys, n - t), d, lane, scale_log2, m,
-                             l);
-    if (lane == 0) {
-      cm[warp] = m;
-      cl[warp] = l;
-    }
-  }
-
-  // CTA `split` writes elements split, split + n_split, ... of the group's
-  // hn x d outputs from every CTA's partial
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  for (int i = tid * n_split + split; i < hn * d; i += n_split * kThreads) {
-    const int w = i / d, c = i - w * d;
-    float mx = -INFINITY;
-    for (int r = 0; r < n_split; ++r)
-      mx = fmaxf(mx, cluster.map_shared_rank(cm, r)[w]);
-    const float ms = mx == -INFINITY ? 0.f : mx;
-    float num = 0.f, den = 0.f;
-    for (int r = 0; r < n_split; ++r) {
-      const float a = exp2_or_0(cluster.map_shared_rank(cm, r)[w], ms);
-      num = fmaf(cluster.map_shared_rank(base, r)[(kWarps + w) * d + c], a,
-                 num);
-      den = fmaf(cluster.map_shared_rank(cl, r)[w], a, den);
-    }
-    out[(head0 + w) * d + c] = from_f32<T>(den > 0.f ? num / den : 0.f);
-  }
-  cluster.sync();  // no CTA leaves while another reads its partial
+  const int t0 = split * chunk;
+  const int n = max(0, min(chunk, kv_len - t0));  // valid keys here
+  const size_t stride = (size_t)hkv * d;
+  const size_t kv_off = ((size_t)bi * skv + t0) * stride + (size_t)hi * d;
+  const int c0 = BIG ? blockIdx.y * gen::kChunk : 0;
+  gen::RangeWalk<Eng::kKeys / gen::kSegRows> walk{n, 0};
+  Eng eng;
+  float* wm = ws;  // (m, l) of (head, split), then O of (head, split)
+  float* wo = ws + 2 * (size_t)n_heads * n_split;
+  gen::attend<Eng, BIG>(
+      eng, reinterpret_cast<E*>(smem4), walk, q + head0 * d, (size_t)d, R,
+      k + kv_off, v + kv_off, stride, d, blockIdx.y, 0, 0, scale_log2,
+      [&](int r, int c, float m, float l, float a) {
+        const size_t h = head0 + r;
+        if (n_split == 1) {
+          out[h * d + c0 + c] = from_f32<E>(l > 0.f ? a / l : 0.f);
+        } else {
+          const size_t row = h * n_split + split;
+          wo[row * d + c0 + c] = a;
+          if (c0 + c == 0) {
+            wm[2 * row] = m;
+            wm[2 * row + 1] = l;
+          }
+        }
+      });
+  grid_dep_launch();  // the combine may start; it waits for this memory
 }
+
+// The splits' partials merged into the output: out = sum_s 2^(m_s - M)
+// o_s / sum_s 2^(m_s - M) l_s, M the largest m_s. A CTA takes 32 columns
+// of one query head (grid: heads x column blocks), a lane a column; its 16
+// warps take every 16th split, so each thread's loads are few and
+// independent, and the warps' sums meet in shared memory.
+constexpr int kCombineWarps = 16;
 
 template <typename T>
-int launch_generic(const void* q, const void* k, const void* v, void* out,
-                   int b, int skv, int hq, int hkv, int d, int kv_len,
-                   int chunk, int n_split, float scale, cudaStream_t stream) {
-  const int g = hq / hkv, n_hg = (g + kWarps - 1) / kWarps;
-  const long long n_items = (long long)b * hkv * n_hg;
-  const int gy = (int)(n_items < 65535 ? n_items : 65535);
-  const long long gz = (n_items + gy - 1) / gy;
-  if (gz > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)2 * kWarps * d + 2 * kWarps);
-  return launch_clusters<decode_generic_kernel<T>>(
-      smem, n_split, gy, (int)gz, stream, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), skv, hq, hkv, d, g, n_hg, n_items, kv_len, chunk,
-      scale * kLog2e);
+__global__ void __launch_bounds__(kCombineWarps * 32)
+decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ out,
+                      long long n_heads, int n_split, int d) {
+  constexpr int W = kCombineWarps;
+  __shared__ float num_w[W][32], den_w[W], max_w[W];
+  grid_dep_wait();  // every split's partial has landed
+  const long long h = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.y * 32 + lane;
+  const float* wm = ws + 2 * h * n_split;
+  const float* wo = ws + 2 * n_heads * n_split + h * n_split * d;
+  float mx = -INFINITY;
+  for (int s = threadIdx.x; s < n_split; s += W * 32)
+    mx = fmaxf(mx, wm[2 * s]);
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+  if (lane == 0) max_w[warp] = mx;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < W; ++w) mx = fmaxf(mx, max_w[w]);
+  const float ms = mx == -INFINITY ? 0.f : mx;
+  float num = 0.f, den = 0.f;
+#pragma unroll 4
+  for (int s = warp; s < n_split; s += W) {
+    const float a = exp2_or_0(wm[2 * s], ms);
+    den = fmaf(wm[2 * s + 1], a, den);
+    if (col < d) num = fmaf(wo[(size_t)s * d + col], a, num);
+  }
+  num_w[warp][lane] = num;
+  if (lane == 0) den_w[warp] = den;
+  __syncthreads();
+  if (warp == 0 && col < d) {
+    float n = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      n += num_w[w][lane];
+      l += den_w[w];
+    }
+    out[h * d + col] = from_f32<T>(l > 0.f ? n / l : 0.f);
+  }
 }
+
+template <class Eng, bool BIG>
+int launch_generic(const void* q, const void* k, const void* v, void* out,
+                   void* ws, int b, int skv, int hq, int hkv, int d,
+                   int kv_len, int chunk, int n_split, float scale,
+                   cudaStream_t stream) {
+  using E = typename Eng::E;
+  auto kern = decode_generic_kernel<Eng, BIG>;
+  static bool configured = false;  // once a kernel: the most it may ask for
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int g = hq / hkv, n_hc = (g + Eng::kRows - 1) / Eng::kRows;
+  const long long ctas = (long long)b * hkv * n_hc * n_split;
+  if (ctas > 0x7fffffffLL || (n_split > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long n_heads = (long long)b * hq;
+  dim3 grid((unsigned)ctas, gen::col_chunks(d));
+  kern<<<grid, gen::kThreads, gen::smem_bytes<Eng>(d), stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<E*>(out),
+      static_cast<float*>(ws), skv, hq, hkv, d, g, n_hc, kv_len, chunk,
+      n_split, n_heads, scale * kLog2e);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  // the combine as a programmatic dependent launch: its launch overlaps
+  // the splits' tail
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n_heads, (d + 31) / 32);
+  cfg.blockDim = dim3(kCombineWarps * 32);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, decode_combine_kernel<E>,
+                           static_cast<const float*>(ws), static_cast<E*>(out),
+                           n_heads, n_split, d);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The instance of a head size's tier (64, 128, 256 columns, or 256-column
+// chunks: BIG) and, on the tensor cores, of the query heads' row tiles
+// (the groups of 16 keys a warp takes: gen::Tc's NG; BIG takes 4), with
+// three stages up to 128 columns (gen::Tc's NS; at 256, 220 KB a CTA
+// would leave no room for 64 rows of Q).
+#define DECODE_PARAMS                                                      \
+  const void *q, const void *k, const void *v, void *out, void *ws, int b, \
+      int skv, int hq, int hkv, int d, int kv_len, int chunk, int n_split, \
+      float scale, cudaStream_t s
+#define DECODE_ARGS \
+  q, k, v, out, ws, b, skv, hq, hkv, d, kv_len, chunk, n_split, scale, s
+
+template <typename T>
+int launch_generic_tc(DECODE_PARAMS) {
+  const int n_rt = (min(hq / hkv, 64) + 15) / 16;
+  if (d > gen::kChunk)
+    return launch_generic<gen::Tc<T, 256, 4>, true>(DECODE_ARGS);
+#define TC_NG(TT, NS)                                                      \
+  if (n_rt == 1)                                                           \
+    return launch_generic<gen::Tc<T, TT, 1, NS>, false>(DECODE_ARGS);      \
+  if (n_rt == 2)                                                           \
+    return launch_generic<gen::Tc<T, TT, 2, NS>, false>(DECODE_ARGS);      \
+  return launch_generic<gen::Tc<T, TT, 4, NS>, false>(DECODE_ARGS);
+  switch (gen::tier_of(d)) {
+    case 64: { TC_NG(64, 3) }
+    case 128: { TC_NG(128, 3) }
+    default: { TC_NG(256, 2) }
+  }
+#undef TC_NG
+}
+
+int launch_generic_fp32(DECODE_PARAMS) {
+  if (d > gen::kChunk)
+    return launch_generic<gen::Simt<256>, true>(DECODE_ARGS);
+  switch (gen::tier_of(d)) {
+    case 64: return launch_generic<gen::Simt<64>, false>(DECODE_ARGS);
+    case 128: return launch_generic<gen::Simt<128>, false>(DECODE_ARGS);
+    default: return launch_generic<gen::Simt<256>, false>(DECODE_ARGS);
+  }
+}
+#undef DECODE_ARGS
+#undef DECODE_PARAMS
 
 }  // namespace
 
@@ -789,25 +891,27 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   }
 }
 
-// The generic kernel (decode_generic_kernel): any d >= 1 whose (2 * 4 * d
-// + 8) floats of shared memory a CTA can hold, any g = hq / hkv >= 1,
-// dtype 0 fp32, 1 bf16, 2 fp16; the same split as the others.
+// The generic kernel (decode_generic_kernel, then decode_combine_kernel
+// where n_split > 1): any d >= 1, any g = hq / hkv >= 1, dtype 0 fp32, 1
+// bf16, 2 fp16; n_split splits of `chunk` keys that cover kv_len, none of
+// them empty unless kv_len is 0, and a workspace ws of b * hq * n_split *
+// (d + 2) floats where n_split > 1 (kernel.py::workspace_floats).
 int decode_attention_generic_launch(const void* q, const void* k,
-                                    const void* v, void* out, int b, int skv,
-                                    int hq, int hkv, int d, int kv_len,
-                                    int chunk, int n_split, float scale,
-                                    int dtype, void* stream) {
+                                    const void* v, void* out, void* ws,
+                                    int b, int skv, int hq, int hkv, int d,
+                                    int kv_len, int chunk, int n_split,
+                                    float scale, int dtype, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (b == 0 || hq == 0) return (int)cudaGetLastError();
-  if (n_split < 1 || n_split > kMaxCluster || chunk < 1 ||
-      (long long)chunk * n_split < kv_len || hkv < 1 || hq % hkv != 0)
+  if (n_split < 1 || chunk < 1 || (long long)chunk * n_split < kv_len ||
+      hkv < 1 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
 #define DECODE_ARGS \
-  q, k, v, out, b, skv, hq, hkv, d, kv_len, chunk, n_split, scale, s
+  q, k, v, out, ws, b, skv, hq, hkv, d, kv_len, chunk, n_split, scale, s
   switch (dtype) {
-    case 0: return launch_generic<float>(DECODE_ARGS);
-    case 1: return launch_generic<bf16>(DECODE_ARGS);
-    case 2: return launch_generic<f16>(DECODE_ARGS);
+    case 0: return launch_generic_fp32(DECODE_ARGS);
+    case 1: return launch_generic_tc<bf16>(DECODE_ARGS);
+    case 2: return launch_generic_tc<f16>(DECODE_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DECODE_ARGS

@@ -1,7 +1,7 @@
 // Helpers shared by the attention kernels of this directory: cp.async
 // copies into shared memory, ldmatrix, the bf16 and fp16 mma.sync
-// m16n8k16 with fp32 accumulation, the element types' conversions, and
-// the generic kernels' online-softmax step over a few keys.
+// m16n8k16 with fp32 accumulation, the element types' conversions, the row
+// pitch of the fast kernels' tiles and programmatic dependent launch.
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"): lane l
 // holds rows l / 4 and l / 4 + 8 and columns 2 * (l % 4) + {0, 1} (+ 8) of
 // each 16 x 8 tile; the fp16 instruction has the bf16 one's shape and
@@ -55,6 +55,15 @@ __device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t (&r)[4]) {
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+// Programmatic dependent launch: a kernel lets the next one on its stream
+// start (launch_dependents), and that one waits for the first's memory
+// (wait), so the second launch's latency overlaps the first's tail.
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+}
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 // c += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -136,57 +145,6 @@ __device__ __forceinline__ int swz(int row, int ch) {
     return row * D + ((ch ^ (row & 7)) << 3);
   else  // an odd number of chunks a row: no swizzle needed
     return row * P + (ch << 3);
-}
-
-// Up to U keys of one warp's online softmax at a time (the generic
-// attention kernels): rows kr + u * stride and vr + u * stride for u < n,
-// lane l owning columns l, l + 32, ... of q (qs) and the fp32 accumulator
-// (acc), both in shared memory and touched by their lane alone. The U dot
-// products' loads and shuffle reductions are independent, so they overlap
-// where one key at a time waits on each; p is rounded to T for the PV
-// product (the Pallas kernels' p.astype(v.dtype)) while l sums it
-// unrounded. Warp-uniform: every lane calls it with the same n.
-template <int U, typename T>
-__device__ __forceinline__ void softmax_keys(const float* qs, float* acc,
-                                             const T* kr, const T* vr,
-                                             size_t stride, int n, int d,
-                                             int lane, float scale_log2,
-                                             float& m, float& l) {
-  float dot[U];
-#pragma unroll
-  for (int u = 0; u < U; ++u) dot[u] = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float qc = qs[c];
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (u < n) dot[u] = fmaf(qc, to_f32(kr[u * stride + c]), dot[u]);
-  }
-#pragma unroll
-  for (int w = 16; w > 0; w >>= 1)
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], w);
-  float m_new = m;
-#pragma unroll
-  for (int u = 0; u < U; ++u)
-    if (u < n) m_new = fmaxf(m_new, dot[u] * scale_log2);
-  const float corr = exp2f(m - m_new);  // 0 while m is -inf
-  float pv[U];
-  l *= corr;
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const float p = u < n ? exp2f(dot[u] * scale_log2 - m_new) : 0.f;
-    l += p;
-    pv[u] = to_f32(from_f32<T>(p));
-  }
-  m = m_new;
-  for (int c = lane; c < d; c += 32) {
-    float a = acc[c] * corr;
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (u < n) a = fmaf(pv[u], to_f32(vr[u * stride + c]), a);
-    acc[c] = a;
-  }
 }
 
 }  // namespace sm90

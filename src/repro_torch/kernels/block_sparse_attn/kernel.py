@@ -13,7 +13,10 @@ launches one of them on CUDA tensors, chosen by shape before the launch:
   Each launch adds one to ``LAUNCHES["block_sparse_attention"]``;
 - the generic kernel for every other shape the reference takes: any head
   size up to ``_GENERIC_MAX_D``, any q_block and kv_block, fp32, bf16 or
-  fp16, one warp a query row on the CUDA cores. Each launch adds one to
+  fp16. A CTA takes up to 64 rows of a q-block (32 in fp32), stages each
+  64-key sub-tile of its list (32 in fp32) once for all of them, and
+  computes on the tensor cores in bf16 and fp16, on the CUDA cores in fp32
+  (``kernels/_generic.py``). Each launch adds one to
   ``LAUNCHES["block_sparse_attention_generic"]``.
 
 ``supported(hq, hkv, d, dtype)`` and ``supported_blocks(q_block,
@@ -41,9 +44,8 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _DTYPE_CODE = {dt: i for i, dt in enumerate(_DTYPES)}    # the C code's
 _HEAD_DIMS = (64, 80, 128, 256)    # the fast kernels' head sizes
 _SEG = 16            # the fast kernels' blocks are multiples of it (m16)
-# the generic kernel's head sizes: 1 to this. Its CTA keeps 4 warps' q
-# rows and fp32 accumulators in shared memory, 32 * d bytes: 128 KB here,
-# of the 227 KB a CTA may hold
+# the generic kernel's head sizes: 1 to this (past 256, 16 CTAs a row
+# block, each owning 256 of O's columns)
 _GENERIC_MAX_D = 4096
 _MAX_GRID_Y = 65535  # the tensor-core kernels' row blocks (gridDim.y)
 
@@ -203,8 +205,7 @@ def _check(q, k, v, block_idx, block_cnt, q_block, kv_block, kv_group):
         raise ValueError(f"dtype {q.dtype}: the kernels take {_DTYPES}")
     if not 1 <= d <= _GENERIC_MAX_D:
         raise ValueError(f"head size {d}: the kernels take 1 to "
-                         f"{_GENERIC_MAX_D}, the generic kernel's limit "
-                         f"(its CTA holds 32 * d bytes of shared memory)")
+                         f"{_GENERIC_MAX_D}, the generic kernel's limit")
     if not supported_blocks(q_block, kv_block):
         raise ValueError(f"q_block {q_block} and kv_block {kv_block} must "
                          "be positive")

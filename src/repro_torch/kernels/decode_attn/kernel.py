@@ -9,13 +9,17 @@ heads a kv head: every attention-bearing config of
 ``repro_torch.configs``), bf16 and fp16 on the tensor cores and fp32 on
 the CUDA cores, each launch adding one to
 ``LAUNCHES["decode_attention"]``; the generic kernel (any head size up
-to ``_GENERIC_MAX_D``, any group, fp32, bf16 or fp16, a warp a query
-head on the CUDA cores) for the rest, adding one to
+to ``_GENERIC_MAX_D``, any group, fp32, bf16 or fp16: a CTA takes the
+query heads of a kv head as the rows of its tiles, on the tensor cores in
+bf16 and fp16, the CUDA cores in fp32) for the rest, adding one to
 ``LAUNCHES["decode_attention_generic"]``. Both split the cache their own
-way, by ``split_plan`` from the card's SM count, into one thread block
-cluster a (batch, kv head) (and head group, generic) that combines its
-splits in the same launch; ``kv_block`` only sets the plain version's
-blocks, since the split changes nothing but the order of sums.
+way from the card's SM count. The fast kernels' ``split_plan`` makes one
+thread block cluster a (batch, kv head) that combines its splits in the
+same launch; the generic kernel's ``split_plan_generic`` splits until the
+launch has a CTA an SM at least, and its splits' partials go to a
+workspace (``workspace_floats``) that a second kernel of the same call
+combines. ``kv_block`` only sets the plain version's blocks, since the
+split changes nothing but the order of sums.
 ``decode_attention_plain`` computes the same function with torch ops:
 per kv block of ``kv_block`` keys, the block's max, p rounded to v's
 dtype before the PV product, and the blocks' fp32 partials combined at
@@ -33,7 +37,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _generic
 
 LAUNCHES = {"decode_attention": 0, "decode_attention_generic": 0}
 
@@ -42,13 +46,13 @@ _DTYPE_CODE = {dt: i for i, dt in enumerate(_DTYPES)}    # the C code's
 _HEAD_DIMS = (32, 64, 80, 128, 256)   # the fast kernels' head sizes
 _MAX_GROUP = 16        # the fast kernels' query heads per kv head, 1 .. this
 _MAX_GRID_YZ = 65535   # the fast kernels' kv heads (gridDim.y), batch (z)
-# the generic kernel's head sizes: 1 to this. Its CTA keeps 4 heads' q and
-# fp32 accumulators in shared memory, 32 * d bytes: 64 KB here, so that a
-# cluster of 16 CTAs finds room on the SMs of one GPC, 3 CTAs an SM
+# the generic kernel's head sizes: 1 to this (past 256, 8 CTAs a split,
+# each owning 256 of O's columns)
 _GENERIC_MAX_D = 2048
 _SPLIT_ROWS = 64       # a split holds a multiple of this many key rows
 _MIN_SPLIT = 256       # keys a split at least, to amortise its combine
 _MAX_SPLITS = 16       # a cluster's CTAs (csrc/decode_attn.cu kMaxCluster)
+_GEN_MIN_SPLIT = 128   # keys a generic split at least
 
 
 def reset_launches() -> None:
@@ -114,6 +118,35 @@ def split_plan(b: int, hkv: int, kv_len: int, n_sm: int) -> tuple[int, int]:
     return chunk, -(-kv_len // chunk)
 
 
+def split_plan_generic(items: int, kv_len: int,
+                       n_sm: int) -> tuple[int, int]:
+    """(keys per split, number of splits) for the generic kernel over
+    ``items`` CTAs a split (batch x kv head x head chunks of
+    ``_generic.cta_rows``): whole multiples of ``_SPLIT_ROWS`` keys, about
+    ``_GEN_MIN_SPLIT`` or more, as many as bring the launch to two CTAs an
+    SM where kv_len allows, so that a few (batch, kv head) pairs still
+    fill the card. The splits tile ``[0, kv_len)``, none empty; kv_len 0
+    gives one empty split."""
+    if kv_len <= 0:
+        return _SPLIT_ROWS, 1
+    rows = -(-kv_len // _SPLIT_ROWS)
+    want = max(1, min(-(-kv_len // _GEN_MIN_SPLIT), -(-2 * n_sm // items)))
+    chunk = -(-rows // want) * _SPLIT_ROWS
+    return chunk, -(-kv_len // chunk)
+
+
+def head_chunks(g: int, dtype) -> int:
+    """CTAs a split takes for g query heads a kv head (their rows)."""
+    return -(-g // _generic.cta_rows(dtype, g))
+
+
+def workspace_floats(b: int, hq: int, d: int, n_split: int) -> int:
+    """fp32 values of the generic kernel's workspace: (m, l) and the
+    unnormalised output of every query head and split; none for one
+    split, which writes the output itself."""
+    return 0 if n_split <= 1 else b * hq * n_split * (d + 2)
+
+
 _SM_COUNT: dict[int, int] = {}
 
 
@@ -133,12 +166,13 @@ def _lib():
     if _LIB is None:
         lib = _build.load("decode_attn")
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("decode_attention_launch",
-                     "decode_attention_generic_launch"):
-            fn = getattr(lib, name)
-            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                           ctypes.c_float, i, p]
-            fn.restype = i
+        lib.decode_attention_launch.argtypes = [
+            p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.decode_attention_launch.restype = i
+        # the generic kernel also takes its workspace, after out
+        lib.decode_attention_generic_launch.argtypes = [
+            p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.decode_attention_generic_launch.restype = i
         _LIB = lib
     return _LIB
 
@@ -176,8 +210,7 @@ def _check(q, k, v, kv_len):
         raise ValueError(f"dtype {q.dtype}: the kernels take {_DTYPES}")
     if not 1 <= d <= _GENERIC_MAX_D:
         raise ValueError(f"head size {d}: the kernels take 1 to "
-                         f"{_GENERIC_MAX_D}, the generic kernel's limit "
-                         f"(its CTA holds 32 * d bytes of shared memory)")
+                         f"{_GENERIC_MAX_D}, the generic kernel's limit")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one dtype of {_DTYPES}")
     if not 0 <= kv_len <= skv:
@@ -196,25 +229,37 @@ def decode_attention(q, k, v, kv_len: int, *, kv_block: int = 256,
     """Launch a CUDA kernel: same contract as
     ``decode_attention_plain``. The fast kernels take the shapes they were
     built for (``_fast``), the generic kernel the rest. ``kv_block`` must
-    be positive; the kernels' split is ``split_plan``'s, which changes
-    only the order of sums."""
+    be positive; the kernels' split is ``split_plan``'s (fast) or
+    ``split_plan_generic``'s, which changes only the order of sums."""
     kv_len = int(kv_len)
     if kv_block <= 0:
         raise ValueError(f"kv_block {kv_block} must be positive")
     _check(q, k, v, kv_len)
     b, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    chunk, n_split = split_plan(b, hkv, kv_len, _sm_count(q.device))
     lib = _lib()
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    name = ("decode_attention" if _fast(b, hq, hkv, d, q.dtype)
-            else "decode_attention_generic")
-    err = getattr(lib, name + "_launch")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, skv, hq,
-        hkv, d, kv_len, chunk, n_split, float(scale), _DTYPE_CODE[q.dtype],
-        stream)
+    n_sm = _sm_count(q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if _fast(b, hq, hkv, d, q.dtype):
+        name = "decode_attention"
+        chunk, n_split = split_plan(b, hkv, kv_len, n_sm)
+        err = lib.decode_attention_launch(
+            *ptrs, b, skv, hq, hkv, d, kv_len, chunk, n_split, float(scale),
+            _DTYPE_CODE[q.dtype], stream)
+    else:
+        name = "decode_attention_generic"
+        chunk, n_split = split_plan_generic(
+            b * hkv * head_chunks(hq // hkv, q.dtype), kv_len, n_sm)
+        n_ws = workspace_floats(b, hq, d, n_split)
+        ws = (torch.empty(n_ws, dtype=torch.float32, device=q.device)
+              if n_ws else None)
+        err = lib.decode_attention_generic_launch(
+            *ptrs, ws.data_ptr() if ws is not None else None, b, skv, hq,
+            hkv, d, kv_len, chunk, n_split, float(scale),
+            _DTYPE_CODE[q.dtype], stream)
     LAUNCHES[name] += 1
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

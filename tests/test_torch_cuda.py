@@ -547,6 +547,12 @@ GENERIC_BSA = [(48, (24, 24), 3), (48, (8, 8), 1), (96, (8, 8), 3),
                (512, (8, 8), 1), (512, (40, 20), 3)]
 GENERIC_DEC = [(d, g) for d in (48, 96, 512) for g in (20, 32)]
 DTYPES3 = [torch.float32, torch.bfloat16, torch.float16]
+# the generic kernels' tiers and staging: d 33 (rows that are not whole
+# 16-byte pieces: copied element by element), 264 (the first past the 256
+# tier: two CTAs of O's columns), 4096 (sixteen), and kv blocks of 40
+# rows (five 8-row segments) under q-blocks of 24
+TIER_BSA = [(33, (24, 24), 2), (264, (24, 40), 1), (4096, (24, 40), 1),
+            (96, (24, 40), 3)]
 
 
 def _launched(counts, fn):
@@ -558,7 +564,7 @@ def _launched(counts, fn):
 
 @pytest.mark.parametrize("dtype", DTYPES3)
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d,blocks,g", GENERIC_BSA)
+@pytest.mark.parametrize("d,blocks,g", GENERIC_BSA + TIER_BSA)
 def test_block_sparse_generic_matches_plain(cuda, d, blocks, g, causal,
                                             dtype):
     """The generic kernel, one launch a call and no fast launch, against
@@ -600,6 +606,51 @@ def test_decode_generic_matches_plain(cuda, d, g, dtype):
         assert out.dtype == dtype and _close(out, plain, dtype)
         if kv_len == 0:
             assert not out.any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("d,g,kv_len", [
+    (64, 17, 1999), (96, 48, 1999), (64, 71, 1999), (2048, 2, 1999),
+    (64, 71, 1), (64, 71, 0), (2048, 2, 1), (2048, 2, 0)])
+def test_decode_generic_groups_and_lengths(cuda, d, g, kv_len, dtype):
+    """Groups past the fast set (17; 48, StarCoder-15B's 48 over 1; 71,
+    Falcon-7B's 71 over 1: two CTAs of heads a split), head size 2048
+    (eight CTAs of O's columns), kv_len 1 and 0: one generic launch a
+    call against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(d + g + kv_len)
+    q = _randn(gen, (2, g, d), dtype, cuda)
+    k = _randn(gen, (2, 2000, 1, d), dtype, cuda)
+    v = _randn(gen, (2, 2000, 1, d), dtype, cuda)
+    out, n = _launched(DK.LAUNCHES, lambda: DK.decode_attention(
+        q, k, v, kv_len))
+    assert n == {"decode_attention_generic": 1}
+    plain = DK.decode_attention_plain(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and _close(out, plain, dtype)
+    if kv_len == 0:
+        assert not out.any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("kv_len", [31_999, 12_345])
+def test_decode_generic_at_path_o_shape(cuda, kv_len, dtype):
+    """chip_smoke path O's generic decode shape (40/2 heads of 96) at
+    lengths that the generic split does not divide: many splits, a short
+    last one, combined through the workspace; one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(kv_len)
+    q = _randn(gen, (1, 40, 96), dtype, cuda)
+    k = _randn(gen, (1, 32000, 2, 96), dtype, cuda)
+    v = _randn(gen, (1, 32000, 2, 96), dtype, cuda)
+    chunk, n_split = DK.split_plan_generic(
+        2 * DK.head_chunks(20, dtype), kv_len,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert n_split > 1 and kv_len % chunk
+    out, n = _launched(DK.LAUNCHES, lambda: DK.decode_attention(
+        q, k, v, kv_len))
+    assert n == {"decode_attention_generic": 1}
+    plain = DK.decode_attention_plain(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and _close(out, plain, dtype)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time the port's kernels in two source trees on one card, in turns (A,
-B, B, A), at the shapes of chip_smoke.py's paths A, C and D.
+B, B, A), at the shapes of chip_smoke.py's paths A, C, D and O.
 
   python3 tools/kernel_ab.py PATH_A PATH_B [--out FILE]
 
@@ -20,6 +20,10 @@ torch.Generator on the card:
   zamba2-2.7b (32/32 heads of 80) shapes over 2048 tokens;
 - decode, bf16: q (1, 32, 128) over k/v (1, 32768, 8, 128) at kv_len
   2048 (path D) and 32000 (path D's long cache);
+- the generic kernels at chip_smoke path O's full-width shapes, bf16:
+  block-sparse q (32 heads, 2040 tokens, 96), k/v (8 heads) in (24, 24)
+  blocks on the causal lists at the serving mass, and decode q (1, 40,
+  96) over k/v (1, 32000, 2, 96) at kv_len 32000;
 - dequant, fp32 out: a cachegen request of path A (144 chunk tensors of
   1024 x 8 x 128 5-bit codes, group 64) staged by
   kernels/kv_dequant/ops.stage into K and V caches, one kv_dequant
@@ -85,6 +89,19 @@ for n in (2048, 32000):
     out[f"decode_{{n}}_ms"] = time_ms(
         lambda: DK.decode_attention(dq, dk, dv, n), flush)
 del q, k, v, dq, dk, dv
+gq, gk, gv = (torch.randn((h, 2040, 96), generator=gen, device=dev).to(bf)
+              for h in (32, 8, 8))
+gi, gc = block_lists(gq, gk, 4, mass=SparKVConfig().attention_mass,
+                     q_block=24, kv_block=24, causal=True)
+out["block_sparse_generic_ms"] = time_ms(
+    lambda: BK.block_sparse_attention(gq, gk, gv, gi, gc, q_block=24,
+                                      kv_block=24, kv_group=4), flush)
+oq = torch.randn((1, 40, 96), generator=gen, device=dev).to(bf)
+ok, ov = (torch.randn((1, 32000, 2, 96), generator=gen, device=dev).to(bf)
+          for _ in range(2))
+out["decode_generic_ms"] = time_ms(
+    lambda: DK.decode_attention(oq, ok, ov, 32000), flush)
+del gq, gk, gv, oq, ok, ov
 qts, caches = _request_chunks(np.random.default_rng(0), 36, [5], dev)
 cache, dests = caches()
 batch = KO.stage(qts, dests, mixed=False)
