@@ -1,0 +1,14 @@
+"""The host time of a decode step's attention, all layers: the server's
+``phase_s["decode.step.attention"]`` spans (``transformer.decode_attention``:
+the tail write, the context and tail passes and their merge; host clock)
+summed over the window's requests, over their ``decode_step`` calls, in
+ms."""
+
+KEY = "decode.step.attention"
+
+
+def read(ctx):
+    steps = sum(r.steps for r in ctx.requests)
+    if not steps or any(KEY not in r.phase for r in ctx.requests):
+        return None
+    return sum(r.phase[KEY] for r in ctx.requests) * 1e3 / steps

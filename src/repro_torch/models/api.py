@@ -30,6 +30,7 @@ from repro_torch.device import resolve
 from repro_torch.distributed.spmd import is_dtensor
 from repro_torch.models import layers as L
 from repro_torch.models import encdec, hybrid, mamba_lm, transformer
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass
@@ -71,7 +72,8 @@ class Model:
         return self._mod.prefill(self.cfg, params, inputs["tokens"])
 
     def decode_step(self, params, cache, token, pos):
-        return self._mod.decode_step(self.cfg, params, cache, token, pos)
+        with span("decode.step"):
+            return self._mod.decode_step(self.cfg, params, cache, token, pos)
 
     def init_cache(self, batch: int, capacity: int, *, device=None):
         return self._mod.init_cache(self.cfg, batch, capacity,

@@ -12,6 +12,8 @@ attention tails copied before the new token is written into them.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.distributed.sharding import constrain
@@ -20,6 +22,7 @@ from repro_torch.models import mamba_lm
 from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import ParamDef
+from repro_torch.spans import span
 
 
 def n_attn_apps(cfg) -> int:
@@ -71,8 +74,10 @@ def _shared_attn(cfg, sp, x, positions, *, kv_cache=None, pos=None):
     x = constrain(x + L.attention_out(sp["attn"], o),
                   "batch", "block_seq", None)
     h = L.apply_norm(cfg, x, sp["mlp_norm"])
-    return constrain(x + L.mlp_block(cfg, sp["mlp"], h),
-                     "batch", "block_seq", None), new_kv
+    with (span("decode.step.ffn") if kv_cache is not None
+          else contextlib.nullcontext()):
+        y = L.mlp_block(cfg, sp["mlp"], h)
+    return constrain(x + y, "batch", "block_seq", None), new_kv
 
 
 def forward(cfg, params, tokens, *, collect: bool = False):

@@ -7,6 +7,7 @@ under autograd as the reference's ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -18,6 +19,7 @@ from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamDef
+from repro_torch.spans import span
 
 # capacity of the decode tail buffer (newly generated tokens); the
 # context cache stays read-only, as in the reference
@@ -97,15 +99,16 @@ def decode_attention(cfg, bp_attn, q, k, v, ctx_k, ctx_v, tail_k, tail_v,
         raise ValueError(f"decode position {tail_pos} is before the tail "
                          "buffer")
     slot = min(tail_pos, tail_k.shape[1] - 1)
-    spmd.write(tail_k, slot, k[:, 0])
-    spmd.write(tail_v, slot, v[:, 0])
-    p1 = L.flash_attention(q, ctx_k, ctx_v, causal=False,
-                           kv_chunk=max(cfg.attn_chunk, 2048),
-                           return_stats=True)
-    p2 = L.flash_attention(q, tail_k, tail_v, causal=False,
-                           kv_len=tail_pos + 1, kv_chunk=DECODE_TAIL,
-                           return_stats=True)
-    o = L.merge_attention([p1, p2])
+    with span("decode.step.attention"):
+        spmd.write(tail_k, slot, k[:, 0])
+        spmd.write(tail_v, slot, v[:, 0])
+        p1 = L.flash_attention(q, ctx_k, ctx_v, causal=False,
+                               kv_chunk=max(cfg.attn_chunk, 2048),
+                               return_stats=True)
+        p2 = L.flash_attention(q, tail_k, tail_v, causal=False,
+                               kv_len=tail_pos + 1, kv_chunk=DECODE_TAIL,
+                               return_stats=True)
+        o = L.merge_attention([p1, p2])
     return o, tail_k, tail_v
 
 
@@ -128,10 +131,10 @@ def _block(cfg, bp, x, positions, *, causal=True, kv_cache=None, pos=None):
                   "batch", "block_seq", None)
     x = constrain(x + y, "batch", "block_seq", None)
     h = L.apply_norm(cfg, x, bp["mlp_norm"])
-    if cfg.moe is not None:
-        y, aux = L.moe_block(cfg, bp["moe"], h)
-    else:
-        y, aux = L.mlp_block(cfg, bp["mlp"], h), 0.0
+    with (span("decode.step.ffn") if kv_cache is not None
+          else contextlib.nullcontext()):
+        y, aux = (L.moe_block(cfg, bp["moe"], h) if cfg.moe is not None
+                  else (L.mlp_block(cfg, bp["mlp"], h), 0.0))
     y = constrain(y, "batch", "block_seq", None)
     x = constrain(x + y, "batch", "block_seq", None)
     return L.bf16_grad_barrier(x), new_kv, aux

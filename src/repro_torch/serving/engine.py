@@ -15,13 +15,23 @@ each request then *loads* that context through a policy pipeline
 ``serve_fleet`` submits registered contexts to the fleet simulator
 (``serving.cluster.ServingCluster``), planning on this server's device.
 
-``phase_s`` accumulates the wall seconds of each phase (prefill,
-quantize, huffman_encode, mask, plan, huffman_decode, dequant, decode);
-each phase ends with a device synchronise so its time is its own.
+Spans (``repro_torch.spans``): ``phase_s`` is the server's sink, the
+host seconds of each span name summed over the server's life. Its phases
+(``prefill``, ``quantize``, ``mask``, ``huffman_encode`` in registration;
+``plan``, ``huffman_decode``, ``dequant``, ``decode`` in a request) each
+end with a device synchronise, so that a phase's time is its own. Inside
+them, on the host clock alone: ``generate`` (the whole request),
+``huffman_decode.entropy`` (one streamed chunk's Huffman decode, K and
+V), ``decode.readback`` (the tokens' and logits' copies to the host,
+where the host waits for the queued steps), and the model's own
+(``models.api.Model.decode_step``): ``decode.step`` (the dispatch of one
+step), ``decode.step.attention`` and ``decode.step.ffn`` (summed over
+layers). Under a ``torch.profiler`` each span is also a
+``repro_torch.<name>`` range; a request's ranges are those under its
+``generate``.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from collections import defaultdict
@@ -38,9 +48,10 @@ from repro_torch.core.chunks import Chunk
 from repro_torch.core.costs import NETWORKS, PROFILES
 from repro_torch.core.predictor import LatencyPredictor
 from repro_torch.data.workloads import WorkloadChunks
-from repro_torch.device import resolve, sync
+from repro_torch.device import resolve
 from repro_torch.kernels.kv_dequant.ops import dequantize_into
 from repro_torch.models.api import Model
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass
@@ -89,14 +100,10 @@ class SparKVServer:
     def utilization(self) -> float:
         return min(self.active_requests / self.capacity, 1.0)
 
-    @contextlib.contextmanager
-    def _phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            sync(self.device)
-            self.phase_s[name] += time.perf_counter() - t0
+    def _phase(self, name: str) -> span:
+        """A phase: a span into ``phase_s`` that ends once the device has
+        done the work queued in it."""
+        return span(name, into=self.phase_s, sync=self.device)
 
     # ---------------- cloud side ----------------
     def register_context(self, tokens: np.ndarray) -> int:
@@ -245,8 +252,9 @@ class SparKVServer:
         with self._phase("huffman_decode"):
             for c in streamed:
                 ek, ev, qk, qv = st.encoded[c]
-                dk = huffman.decode(ek)
-                dv = huffman.decode(ev)
+                with span("huffman_decode.entropy"):
+                    dk = huffman.decode(ek)
+                    dv = huffman.decode(ev)
                 if not (np.array_equal(dk, qk.codes)
                         and np.array_equal(dv, qv.codes)):
                     raise RuntimeError(f"bitstream corruption in chunk {c}")
@@ -273,19 +281,20 @@ class SparKVServer:
         t_wall = time.time()
         self.active_requests += 1
         try:
-            st = self.contexts[cid]
-            cache, res = self.load_context(cid, policy=policy, seed=seed)
-            toks, logits_seq = self._decode(st, cache, prompt, max_new)
-            if compare_exact:
-                exact_cache = {"k": st.exact_k.to(torch.bfloat16),
-                               "v": st.exact_v.to(torch.bfloat16)}
-                etoks, elogits = self._decode(st, exact_cache, prompt,
-                                              max_new)
-                agree = float(np.mean(toks == etoks))
-                kl = float(np.mean([_kl(e, a) for e, a
-                                    in zip(elogits, logits_seq)]))
-            else:
-                agree, kl = 1.0, 0.0
+            with span("generate", into=self.phase_s):
+                st = self.contexts[cid]
+                cache, res = self.load_context(cid, policy=policy, seed=seed)
+                toks, logits_seq = self._decode(st, cache, prompt, max_new)
+                if compare_exact:
+                    exact_cache = {"k": st.exact_k.to(torch.bfloat16),
+                                   "v": st.exact_v.to(torch.bfloat16)}
+                    etoks, elogits = self._decode(st, exact_cache, prompt,
+                                                  max_new)
+                    agree = float(np.mean(toks == etoks))
+                    kl = float(np.mean([_kl(e, a) for e, a
+                                        in zip(elogits, logits_seq)]))
+                else:
+                    agree, kl = 1.0, 0.0
             eng = res.engine
             return ServeResult(
                 ttft_s=res.ttft_s, energy_j=res.energy_j, tokens=toks,
@@ -366,8 +375,9 @@ class SparKVServer:
                 toks.append(cur)
                 logits_list.append(lf)
             n = len(prompt)
-            out_toks = torch.cat(toks[n:]).cpu().numpy()
-            out_logits = [lf.cpu().numpy() for lf in logits_list[n:]]
+            with span("decode.readback"):
+                out_toks = torch.cat(toks[n:]).cpu().numpy()
+                out_logits = [lf.cpu().numpy() for lf in logits_list[n:]]
         return out_toks, out_logits
 
 
