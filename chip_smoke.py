@@ -17,11 +17,19 @@ Phases, in order; any failure exits non-zero:
      launch over a cachegen request's 144 chunk tensors and over path B's
      16 (mixed form), timed beside its plain version and, for the uniform
      form, in turns with the one torch.addcmul call that computes the
-     same values;
+     same values. The Huffman decode kernel decodes seeded streams
+     (alphabets 1-256, 7 and 64 streams, empty streams, an empty tensor)
+     to the reference decoder's codes, then the stream cell's chunk (K
+     and V of 1024 tokens x 8 heads x 128, 5-bit groups of 64, 64 streams)
+     in one launch, timed beside the decoder on the host and its bounds
+     (bytes, and one table lookup a symbol: the longest stream's symbols
+     times a dependent read of the same shared-memory table, measured by
+     a pointer chase in 64 lanes a block, as the chunk's streams read it);
   3. path A: sparkv-qwen3-4b at full width and depth, random weights from
      a seed; one 2048-token context (1024-token chunks, 72 KV chunks);
      two requests (sparkv, local_prefill), 8 new tokens each, the
-     streaming one dequantized in exactly one kv_dequant launch and its
+     streaming one Huffman-decoded in one huffman_decode launch a streamed
+     chunk and dequantized in exactly one kv_dequant launch, and its
      cache within two quantization steps of the exact one;
      then the dequant of every stored chunk timed on the host clock two
      ways in turns: the per-chunk route (a launch per chunk tensor, plus
@@ -219,6 +227,10 @@ KERNELS = {
     "decode_attention_generic": {
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn/kernel.py:65"},
+    "huffman_decode": {
+        "route": "cuda", "source": "src/repro_torch/csrc/huffman_decode.cu",
+        "replaces": "none: the reference decodes on the host "
+                    "(src/repro/compression/huffman.py, decode)"},
 }
 SOURCES = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
                   for k in KERNELS.values()})
@@ -526,6 +538,171 @@ def kernel_phase(device):
             perf[name] = entry
         del b, cache, dests, caches
     return perf
+
+
+# (alphabet, symbols, streams) of the Huffman decode's checks: every
+# width's alphabet, ragged and empty streams, one symbol, no symbols
+HUFFMAN_CHECKS = ((2, 3001, 7), (32, 3001, 64), (256, 3001, 64),
+                  (32, 900, 64), (1, 100, 7), (32, 0, 64))
+
+
+def host_ms(fn, n):
+    """Median host-clock ms of `fn` over n calls, after one."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# A pointer chase through a 2^16-entry uint16 table in 128 KB of dynamic
+# shared memory, as huffman_decode_kernel keeps its table: each lane makes
+# `steps` dependent reads at the scattered addresses a bitstream gives (a
+# full-period step mod 2^16), so its time a step is one lookup on a
+# stream's chain; lane 0's clock64() gives the cycles.
+SMEM_CHASE_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__global__ void smem_chase_kernel(int steps, uint32_t* out,
+                                  long long* cycles) {
+  extern __shared__ uint16_t table[];
+  for (int w = threadIdx.x; w < 65536; w += blockDim.x)
+    table[w] = (uint16_t)(40501u * w + 12345u);
+  __syncthreads();
+  uint32_t i = threadIdx.x * 1021u + blockIdx.x * 7u;
+  const long long t0 = clock64();
+  for (int k = 0; k < steps; ++k) i = table[i & 0xFFFFu];
+  const long long t1 = clock64();
+  out[blockIdx.x * blockDim.x + threadIdx.x] = i;
+  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
+}
+
+extern "C" int smem_chase_launch(int blocks, int lanes, int steps,
+                                 void* out, void* cycles, void* stream) {
+  const int smem = 65536 * 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      smem_chase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  smem_chase_kernel<<<blocks, lanes, smem, (cudaStream_t)stream>>>(
+      steps, (uint32_t*)out, (long long*)cycles);
+  return (int)cudaGetLastError();
+}
+"""
+CHASE_STEPS = 1 << 18
+
+
+def smem_chase(device, flush):
+    """{lanes: (ns, cycles)} of one dependent read of the chase's table,
+    for 64 lanes a block in two blocks (the stream cell's K and V
+    streams) and for one lane (the read's bare latency). ns: the
+    difference of the medians of 50 (CUDA events) at 2 x CHASE_STEPS and
+    at CHASE_STEPS steps, over CHASE_STEPS, so neither the launch nor the
+    table's build counts; cycles: lane 0's clock64() over the steps."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = _build.BUILD_DIR / "smem_chase.cu"
+    cu.write_text(SMEM_CHASE_CU)
+    so = cu.with_suffix(".so")
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                           str(so), str(cu)], capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc failed for the chase:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.smem_chase_launch.argtypes = [i, i, i, p, p, p]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    reads = {}
+    for lanes in (64, 1):
+        out = torch.empty(2 * lanes, dtype=torch.int32, device=device)
+        cycles = torch.empty(2, dtype=torch.int64, device=device)
+
+        def run(steps):
+            err = lib.smem_chase_launch(2, lanes, steps, out.data_ptr(),
+                                        cycles.data_ptr(), stream)
+            check(err == 0, f"smem_chase launch failed: CUDA error {err}")
+        ms = time_ms(lambda: run(CHASE_STEPS), flush)
+        ms2 = time_ms(lambda: run(2 * CHASE_STEPS), flush)
+        reads[lanes] = ((ms2 - ms) * 1e6 / CHASE_STEPS,
+                        int(cycles.max()) / (2 * CHASE_STEPS))
+    return reads
+
+
+def huffman_phase(device):
+    """The Huffman decode kernel against the reference's decoder (the
+    port's copy of it, on the host): seeded streams, then the stream
+    cell's chunk, K and V in one launch, timed (CUDA events, median of 50,
+    L2 flushed) beside the decoder and its two bounds: bytes, and one
+    lookup a symbol (the longest stream's symbols times the chase's read
+    in 64 lanes). Also the request path's whole decode of the chunk on
+    the host clock: packing, the copy over, the launch and the copy
+    back."""
+    import torch
+    from repro_torch.compression import huffman
+    from repro_torch.compression.quantize import quantize
+    from repro_torch.kernels.huffman_decode import kernel as HK
+
+    rng = np.random.default_rng(0)
+    for alphabet, n, streams in HUFFMAN_CHECKS:
+        x = np.clip(np.round(rng.normal(alphabet / 2, alphabet / 6, n)), 0,
+                    alphabet - 1).astype(np.uint16)
+        enc = huffman.encode(x, alphabet, n_streams=streams)
+        same = np.array_equal(HK.decode_chunks([enc], device)[0], x)
+        print(f"  huffman_decode    alphabet {alphabet:3d}, {n:4d} symbols, "
+              f"{streams:2d} streams: equal={same}")
+        check(same, f"huffman_decode differs from the decoder at alphabet "
+              f"{alphabet}, {n} symbols, {streams} streams")
+    qts = [quantize(rng.normal(size=(1024, 8, 128)).astype(np.float32), 5,
+                    64) for _ in range(2)]
+    encs = [huffman.encode(q.codes, 32, n_streams=64) for q in qts]
+    got = HK.decode_chunks(encs, device)
+    check(all(np.array_equal(g, q.codes) for g, q in zip(got, qts)),
+          "huffman_decode differs from the stored codes at the cell's chunk")
+    lay = HK.layout(encs)
+    host = torch.empty(lay.nbytes, dtype=torch.uint8, pin_memory=True)
+    HK.pack(encs, lay, host.numpy())
+    buf = host.to(device)
+    out = torch.empty(lay.out_bytes, dtype=torch.uint8, device=device)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    ms = time_ms(lambda: HK.launch(buf, out, len(encs)), flush)
+    reads = smem_chase(device, flush)
+    del flush
+    request_ms = host_ms(lambda: HK.decode_chunks(encs, device), 20)
+    plain_ms = host_ms(lambda: [huffman.decode(e) for e in encs], 2)
+    # each byte read or written once: bitstreams, code lengths, segment
+    # pairs, table rows, codes; one lookup a symbol: the longest stream's
+    # symbols, one dependent read of the table each
+    nbytes = sum(int(((e.bit_lengths + 7) // 8).sum()) + len(e.code.lengths)
+                 + 16 * len(e.n_per_stream) + 8 * HK._COLS + e.n_total
+                 for e in encs)
+    chain = max(int(e.n_per_stream.max()) for e in encs)
+    (read_ns, read_cycles), (lat_ns, lat_cycles) = reads[64], reads[1]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chain_ms = chain * read_ns * 1e-6
+    bound_ms = max(bytes_ms, chain_ms)
+    print(f"  huffman_decode    dependent reads of the table (pointer "
+          f"chase, {CHASE_STEPS} steps): 64 lanes a block {read_ns:.4f} ns "
+          f"({read_cycles:.2f} cycles), one lane {lat_ns:.4f} ns "
+          f"({lat_cycles:.2f} cycles)")
+    print(f"  huffman_decode    the cell's chunk (K and V, 2 x 1,048,576 "
+          f"5-bit codes, 64 streams): kernel {ms:.6f} ms "
+          f"({ms * 1e6 / chain / read_ns:.2f} lookups' time a symbol), the "
+          f"request path's decode {request_ms:.6f} ms (host clock), plain "
+          f"{plain_ms:.6f} ms; bounds: bytes {bytes_ms:.6f} ms ({nbytes} "
+          f"B), one lookup a symbol {chain_ms:.6f} ms ({chain} symbols x "
+          f"{read_ns:.4f} ns); {bound_ms / ms:.1%} of the larger",
+          flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "one lookup a symbol" if chain_ms >= bytes_ms
+            else "bytes",
+            "library_ms": None, "bytes_bound_ms": bytes_ms,
+            "chain_bound_ms": chain_ms, "lookup_ns": read_ns,
+            "lookup_cycles": read_cycles, "request_ms": request_ms}
 
 
 def _max_err(a, b):
@@ -1537,6 +1714,7 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
     dict, receives the server's params and the cache of the first request
     that streamed chunks."""
     from repro_torch.device import sync
+    from repro_torch.kernels.huffman_decode import kernel as HK
     from repro_torch.kernels.kv_dequant import kernel as K
 
     rng = np.random.default_rng(seed)
@@ -1563,6 +1741,7 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
     step_bound = max(float(ex_k.abs().max()), float(ex_v.abs().max())) / 31
     for policy in policies:
         before = dict(K.LAUNCHES)
+        decoded = HK.LAUNCHES["huffman_decode"]
         phases = dict(srv.phase_s)
         seen.clear()
         prompt = rng.integers(0, cfg.vocab_size, size=4)
@@ -1583,6 +1762,10 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
               f"streamed chunks, launches {launched}", flush=True)
         check(res.n_streamed + res.n_computed == st.n_chunks,
               f"{policy}: streamed + computed != {st.n_chunks}")
+        decoded = HK.LAUNCHES["huffman_decode"] - decoded
+        check(decoded == res.n_streamed,
+              f"{policy}: {decoded} huffman_decode launches for "
+              f"{res.n_streamed} streamed chunks")
         check(seen.get("finite") and seen["n_logits"] == 2 * max_new,
               f"{policy}: non-finite logits")
         check(math.isfinite(res.mean_kl), f"{policy}: KL not finite")
@@ -2968,16 +3151,19 @@ def main():
     try:
         print("[kernels] against their plain versions on the card")
         perf = kernel_phase(device)
+        perf["huffman_decode"] = huffman_phase(device)
         att_err = attention_phase(device)
+        from repro_torch.kernels.huffman_decode import kernel as HK
+        decoded = HK.LAUNCHES["huffman_decode"]
 
         from repro_torch.configs import SparKVConfig, get_config
         from repro_torch.kernels.kv_dequant import kernel as K
         cfg = get_config("sparkv-qwen3-4b")
         launches = {name: 0 for name in KERNELS}
 
-        # path A: full width and depth, uniform 5-bit chunks (its cachegen
-        # request, nearly all host Huffman decode, is left out to keep the
-        # run's time: phase 2 times a cachegen request's launch)
+        # path A: full width and depth, uniform 5-bit chunks (no cachegen
+        # request: phase 2 times a cachegen request's dequant launch, and
+        # path B runs one)
         spcfg = SparKVConfig(chunk_tokens=1024)
         kept = {}
         for policy, res, launched, widths in serve_path(
@@ -3112,6 +3298,8 @@ def main():
 
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s wall (host "
           "clock, the kernels' build included)", flush=True)
+    # in this process, after phase 2: paths A, B, O, E1, F, X's quickstart
+    launches["huffman_decode"] = HK.LAUNCHES["huffman_decode"] - decoded
     table = [dict(name=name, **KERNELS[name], launches=launches[name],
                   **perf[name]) for name in KERNELS]
     print(json.dumps({"kernels": table}))

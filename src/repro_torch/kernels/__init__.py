@@ -3,5 +3,7 @@
 Each kernel package mirrors ``repro/kernels/<name>/``: ``kernel.py``
 (the CUDA launcher and the plain version), ``ops.py`` (wire format ->
 tensor, dispatch on the tensor's device) and ``ref.py`` (the oracle).
-CUDA sources live in ``repro_torch/csrc/``.
+``huffman_decode`` has no counterpart there: the reference decodes on
+the host, and its decoder is the CPU path and the oracle. CUDA sources
+live in ``repro_torch/csrc/``.
 """

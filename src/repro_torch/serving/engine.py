@@ -8,9 +8,11 @@ each request then *loads* that context through a policy pipeline
   - timing & energy come from the discrete-event engine (virtual clock,
     real compressed bytes, ground-truth compute latencies);
   - the KV cache content is assembled concretely on the server's device:
-    streamed chunks are entropy-decoded on the host, then dequantized by
-    one kv_dequant launch a request straight into the device cache;
-    computed chunks take the exact values.
+    streamed chunks are entropy-decoded (on the card one huffman_decode
+    launch a chunk, its K and V; on the CPU the reference's decoder),
+    checked against the stored codes, then dequantized by one kv_dequant
+    launch a request straight into the device cache; computed chunks take
+    the exact values.
 
 ``serve_fleet`` submits registered contexts to the fleet simulator
 (``serving.cluster.ServingCluster``), planning on this server's device.
@@ -22,7 +24,8 @@ host seconds of each span name summed over the server's life. Its phases
 end with a device synchronise, so that a phase's time is its own. Inside
 them, on the host clock alone: ``generate`` (the whole request),
 ``huffman_decode.entropy`` (one streamed chunk's Huffman decode, K and
-V), ``decode.readback`` (the tokens' and logits' copies to the host,
+V: on the card its bytes' copy over, the launch and the codes' copy
+back), ``decode.readback`` (the tokens' and logits' copies to the host,
 where the host waits for the queued steps), and the model's own
 (``models.api.Model.decode_step``): ``decode.step`` (the dispatch of one
 step), ``decode.step.attention`` and ``decode.step.ffn`` (summed over
@@ -49,6 +52,7 @@ from repro_torch.core.costs import NETWORKS, PROFILES
 from repro_torch.core.predictor import LatencyPredictor
 from repro_torch.data.workloads import WorkloadChunks
 from repro_torch.device import resolve
+from repro_torch.kernels.huffman_decode.ops import decode as huffman_decode
 from repro_torch.kernels.kv_dequant.ops import dequantize_into
 from repro_torch.models.api import Model
 from repro_torch.spans import span
@@ -253,8 +257,7 @@ class SparKVServer:
             for c in streamed:
                 ek, ev, qk, qv = st.encoded[c]
                 with span("huffman_decode.entropy"):
-                    dk = huffman.decode(ek)
-                    dv = huffman.decode(ev)
+                    dk, dv = huffman_decode([ek, ev], self.device)
                 if not (np.array_equal(dk, qk.codes)
                         and np.array_equal(dv, qv.codes)):
                     raise RuntimeError(f"bitstream corruption in chunk {c}")

@@ -4,12 +4,15 @@ only PyTorch is installed; without a card every case skips.
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from repro_torch.compression import huffman  # noqa: E402
 from repro_torch.compression.quantize import quantize  # noqa: E402
 from repro_torch.configs import SparKVConfig, get_smoke  # noqa: E402
 from repro_torch.kernels.block_sparse_attn import kernel as BK  # noqa: E402
@@ -18,10 +21,13 @@ from repro_torch.kernels.block_sparse_attn.ops import \
     block_lists  # noqa: E402
 from repro_torch.kernels.decode_attn import kernel as DK  # noqa: E402
 from repro_torch.kernels.decode_attn import ops as DO  # noqa: E402
+from repro_torch.kernels.huffman_decode import kernel as HK  # noqa: E402
+from repro_torch.kernels.huffman_decode import ops as HO  # noqa: E402
 from repro_torch.kernels.kv_dequant import kernel as K  # noqa: E402
 from repro_torch.kernels.kv_dequant import ops as KO  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import SparKVServer  # noqa: E402
+from torch_huffman_cases import HUFFMAN_CASES, huffman_symbols  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -732,6 +738,97 @@ def test_grids_past_65535(cuda):
     assert n == {"decode_attention_generic": 1}
     assert _close(out, DK.decode_attention_plain(dq, dk, dk, 33),
                   torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Huffman decode of streamed chunks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("huffman_case", HUFFMAN_CASES)
+def test_huffman_kernel_bit_equal_to_the_decoder(cuda, huffman_case):
+    """tests/torch_huffman_cases.py's cases (alphabets 2-256, 1-64 streams,
+    empty streams, one symbol, codes of 16 bits, an empty tensor), each in
+    one launch beside a second tensor: the codes equal ``huffman.decode``'s."""
+    symbols, alphabet, streams = huffman_symbols(huffman_case)
+    enc = huffman.encode(symbols, alphabet, n_streams=streams)
+    other = huffman.encode(np.arange(777, dtype=np.uint16) % 9, 16,
+                           n_streams=5)
+    before = HK.LAUNCHES["huffman_decode"]
+    got = HO.decode([enc, other], cuda)
+    assert HK.LAUNCHES["huffman_decode"] == before + 1
+    for g, e in zip(got, (enc, other)):
+        assert g.dtype == np.uint8
+        assert np.array_equal(g, huffman.decode(e))
+    assert np.array_equal(got[0], symbols)
+
+
+def test_huffman_kernel_at_the_cells_chunk(cuda):
+    """A streamed chunk of the Qwen3-4B stream cell: K and V of 1,048,576
+    five-bit codes each (1024 tokens x 8 heads x 128, groups of 64) from
+    quantized random KV, 64 streams, in one launch."""
+    rng = np.random.default_rng(11)
+    qts = [quantize(rng.normal(size=(1024, 8, 128)).astype(np.float32), 5,
+                    64) for _ in range(2)]
+    encs = [huffman.encode(q.codes, 32, n_streams=64) for q in qts]
+    before = HK.LAUNCHES["huffman_decode"]
+    got = HO.decode(encs, cuda)
+    assert HK.LAUNCHES["huffman_decode"] == before + 1
+    for g, q in zip(got, qts):
+        assert g.shape == (1 << 20,) and np.array_equal(g, q.codes)
+
+
+def _mixed_width_server(cuda):
+    cfg = get_smoke("sparkv-qwen3-4b", layers=3, d_model=64, heads=4,
+                    d_ff=128, vocab=256)
+    spcfg = SparKVConfig(chunk_tokens=32, q_block=16, kv_block=16,
+                         quant_group=32, alloc_schedule="attention")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    srv = SparKVServer(model, params, spcfg, chunk_tokens=32, device=cuda)
+    cid = srv.register_context(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, 96)))
+    return srv, cid, model, params, spcfg
+
+
+def test_huffman_decode_on_the_serving_path(cuda):
+    """A mixed-width context (alloc_schedule "attention"): a cachegen
+    request decodes each streamed chunk, K and V, in one huffman_decode
+    launch, and its assembly on the card equals a CPU server's (the
+    reference's decoder) bit for bit; local_prefill launches none."""
+    srv, cid, model, params, spcfg = _mixed_width_server(cuda)
+    st = srv.contexts[cid]
+    HK.reset_launches()
+    _, res = srv.load_context(cid, policy="cachegen")
+    n = res.engine.n_streamed
+    assert n == st.n_chunks and HK.LAUNCHES == {"huffman_decode": n}
+    streamed = sorted(res.engine.streamed_set)
+    assert len({q.bits for c in streamed for q in st.encoded[c][2:]}) > 1
+    gk, gv = srv.assemble(st, streamed)
+    cpu = SparKVServer(model, params, spcfg, chunk_tokens=32, device="cpu")
+    cst = type(st)(tokens=st.tokens, exact_k=st.exact_k.cpu(),
+                   exact_v=st.exact_v.cpu(), encoded=st.encoded, wl=st.wl,
+                   n_chunks=st.n_chunks)
+    ck, cv = cpu.assemble(cst, streamed)
+    assert _same_bits(gk.cpu(), ck) and _same_bits(gv.cpu(), cv)
+    HK.reset_launches()
+    srv.generate(cid, np.arange(4), max_new=2, policy="local_prefill")
+    assert HK.LAUNCHES == {"huffman_decode": 0}
+
+
+def test_flipped_payload_byte_is_bitstream_corruption(cuda):
+    """One byte of a stored chunk's bitstream flipped: the card's decode
+    differs from the stored codes and assemble refuses the chunk."""
+    srv, cid, *_ = _mixed_width_server(cuda)
+    st = srv.contexts[cid]
+    c = sorted(st.encoded)[1]
+    ek, ev, qk, qv = st.encoded[c]
+    streams = ek.streams.copy()
+    streams[0, 0] ^= 0xFF
+    st.encoded[c] = (dataclasses.replace(ek, streams=streams), ev, qk, qv)
+    with pytest.raises(RuntimeError, match="bitstream corruption"):
+        srv.assemble(st, [c])
+    st.encoded[c] = (ek, ev, qk, qv)
+    srv.assemble(st, [c])
 
 
 # ---------------------------------------------------------------------------
