@@ -25,10 +25,10 @@ Numbers compared (each against its limit in ``limits/<cell>.json``):
   reference's steps add over the same tokens: a token's relative error,
   the median over the window's tokens, the largest over layers and K or
   V.
-- ``kv_first_layer_err``: the same KV errors in the first layer, whose K
-  and V depend on the token fed and nothing before it: the largest over
-  the window's tokens. A served token other than the one the program fed
-  on reads about 1.4 there.
+- ``kv_first_layer_err``: the same KV errors in the first KV layer (in a
+  transformer, layer 0, whose K and V depend on the token fed and nothing
+  before it): the largest over the window's tokens. A served token other
+  than the one the program fed on reads about 1.4 there.
 - ``token_gap``: at every position where a request produced a
   token, how far the reference's logit of that token lies below the
   reference's best, in standard deviations of the reference's logits;
@@ -47,41 +47,61 @@ Every request of the window is judged. The control (``control=True``) is
 the reference in the program's place, in the precisions below those the
 configuration states: float8 e4m3 for the bfloat16 model, 4 bits for the
 5-bit chunks. A cell compares the numbers its limits file names.
+
+The reference is the module the configuration names
+(``harness.reference_module``). The KV numbers run over its ``kv_layers``,
+which are the rows of the program's stored KV, of its decode tail and of
+an assembled cache, and the l of a streamed chunk (t, l); "the first KV
+layer" is the first of them. Whatever else a reference's context state
+holds (a recurrent layer's) passes to its ``decode`` untouched, so that
+the logits and the token gap judge it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from cardbench.reference import quant as Q
-from cardbench.reference.transformer import Reference, fp8, plain_fp32
+from cardbench import harness
+from cardbench.reference import common as C
+
 
 class Judge:
     """Reference readings of one run's outputs.
 
-    stored: per context, the program's stored (k, v), each (L, S, hkv,
-    hd) float32; contexts: per context, its (S,) token ids; model,
-    sparkv: the configuration's blocks; params: the benchmark's
+    reference: the reference module; stored: per context, the program's
+    stored (k, v), each (L, S, hkv, hd) float32, a row for each of the
+    reference's ``kv_layers``; contexts: per context, its (S,) token ids;
+    model, sparkv: the configuration's blocks; params: the benchmark's
     weights."""
 
-    def __init__(self, model: dict, sparkv: dict, params: dict,
+    def __init__(self, reference, model: dict, sparkv: dict, params: dict,
                  contexts: list, stored: list, device, *,
                  control: bool = False):
         self.m, self.sp = model, sparkv
         self.device = device
         self.control = control
-        self.ref = Reference(model, params)
-        self.low = Reference(model, params, low=fp8) if control else None
+        self.layers = reference.kv_layers(model)
+        self.ref = reference.Reference(model, params)
+        self.low = (reference.Reference(model, params, low=C.fp8)
+                    if control else None)
         self.toks = [torch.as_tensor(np.asarray(c).reshape(-1),
                                      device=device) for c in contexts]
         self.stored = stored
         self.bits = sparkv["quant_bits"]
-        with plain_fp32():
+        with C.plain_fp32():
             self.ref_kv = [self.ref.context_kv(t) for t in self.toks]
             self.low_kv = ([self.low.context_kv(t) for t in self.toks]
                            if control else None)
+        for kv in stored + self.ref_kv:
+            self._rows("KV", kv[0])
         self._ctx = {}
         self._want = {}
+
+    def _rows(self, what: str, x) -> None:
+        """x has one row for each KV layer."""
+        if x.shape[0] != len(self.layers):
+            raise ValueError(f"{what} has {x.shape[0]} rows; the reference's"
+                             f" KV layers are {self.layers}")
 
     # ---- KV ----
     def kv_token_errors(self) -> list:
@@ -90,8 +110,8 @@ class Judge:
         kvs = self.low_kv if self.control else self.stored
         out = []
         for pk, rk in zip(kvs, self.ref_kv):
-            for p, r in zip(pk, rk):
-                for l in range(r.shape[0]):
+            for p, r in zip(pk[:2], rk[:2]):
+                for l in range(len(self.layers)):
                     d = torch.linalg.vector_norm((p[l] - r[l]).flatten(1),
                                                  dim=1)
                     n = torch.linalg.vector_norm(r[l].flatten(1), dim=1)
@@ -108,23 +128,29 @@ class Judge:
     def kv_stream_err(self, context: int, assembled: tuple) -> float:
         """Largest gap, in steps, of an assembled (k, v) (each (L, 1, S,
         hkv, hd)) against the stored chunks, quantized where streamed."""
+        return max([0.0, *self.stream_gaps(context, assembled).values()])
+
+    def stream_gaps(self, context: int, assembled: tuple) -> dict:
+        """{(K 0 or V 1, t, l): the chunk's largest gap in steps} of an
+        assembled cache."""
         k_a, v_a, streamed = assembled
+        self._rows("the assembled cache", k_a)
         streamed = set(streamed)
         g = self.sp["quant_group"]
         ct = self.sp["chunk_tokens"]
-        worst = 0.0
+        gaps = {}
         for i, x_a in enumerate((k_a[:, 0], v_a[:, 0])):
             x_p = self.stored[context][i]
             for t in range(x_p.shape[1] // ct):
-                for l in range(x_p.shape[0]):
+                for l in range(len(self.layers)):
                     key = (context, i, t, l)
                     if key not in self._want:
                         p = self._chunk(x_p, t, l)
-                        codes, step, lo = Q.quantize(p, self.bits, g)
+                        codes, step, lo = C.quantize(p, self.bits, g)
                         self._want[key] = (
-                            Q.dequantize(codes, step, lo),
+                            C.dequantize(codes, step, lo),
                             step.double()[:, None],
-                            Q.roundtrip(p, self.bits - 1, g)
+                            C.roundtrip(p, self.bits - 1, g)
                             if self.control else None)
                     deq, step, low = self._want[key]
                     got = self._chunk(x_a, t, l).to(self.device)
@@ -134,20 +160,21 @@ class Judge:
                     else:
                         want = self._chunk(x_p, t, l).double().reshape(-1, g)
                     gap = (got.double().reshape(-1, g) - want).abs() / step
-                    worst = max(worst, float(gap.max()))
-        return worst
+                    gaps[(i, t, l)] = float(gap.max())
+        return gaps
 
     # ---- logits ----
-    def _cache(self, kv, streamed, bits):
-        """kv with each streamed (t, l) chunk quantized at `bits`."""
+    def _cache(self, state, streamed, bits):
+        """A context state (k, v, *rest) with each streamed (t, l) chunk
+        of k and v quantized at `bits`; the rest as it is."""
         if not streamed:
-            return kv
-        k, v = kv[0].clone(), kv[1].clone()
+            return state
+        k, v = state[0].clone(), state[1].clone()
         for x in (k, v):
             for t, l in streamed:
                 c = self._chunk(x, t, l)
-                c.copy_(Q.roundtrip(c, bits, self.sp["quant_group"]))
-        return k, v
+                c.copy_(C.roundtrip(c, bits, self.sp["quant_group"]))
+        return (k, v, *state[2:])
 
     def _ref_ctx(self, context, streamed):
         key = (context, tuple(sorted(streamed)))
@@ -173,7 +200,7 @@ class Judge:
                               np.asarray(r.tokens)[:-1]])
         seq = torch.as_tensor(seq, dtype=torch.long, device=self.device)
         t = seq.shape[0]
-        with plain_fp32():
+        with C.plain_fp32():
             ref, ref_k, ref_v = self.ref.decode(
                 self._ref_ctx(r.context, streamed), seq)
             if self.control:
@@ -181,6 +208,7 @@ class Judge:
                                   self.bits - 1)
                 got, got_k, got_v = self.low.decode(ctx, seq)
             else:
+                self._rows("the decode tail", r.tail[0])
                 got = r.logits[:, :v].to(self.device).float()
                 got_k, got_v = (x[:, :t].to(self.device).float()
                                 for x in r.tail)
@@ -217,8 +245,9 @@ def judge(run, *, control: bool = False, positions: list = None,
     reqs = run.requests
     stored = [(run.srv.contexts[cid].exact_k[:, 0],
                run.srv.contexts[cid].exact_v[:, 0]) for cid in run.cids]
-    j = Judge(c.config["model"], c.config["sparkv"], run.params,
-              run.traffic.contexts, stored, run.device, control=control)
+    j = Judge(harness.reference_module(c.config), c.config["model"],
+              c.config["sparkv"], run.params, run.traffic.contexts, stored,
+              run.device, control=control)
     out = {"kv_prefill_err": j.kv_prefill_err()}
     if tokens is not None:
         tokens.extend(j.kv_token_errors())

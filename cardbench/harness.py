@@ -5,7 +5,10 @@ traffic mix (``cardbench/traffic/<traffic>.json``), its configuration file
 (the ``file`` of its ``configs`` entry), the limits of its correctness
 check (``cardbench/limits/<cell>.json``), and one reader a metric
 (``cardbench/metrics/<metric>.py``, whose ``read(ctx)`` returns a number,
-or None where it finds nothing to read).
+or None where it finds nothing to read). The configuration file names the
+module that builds the program's configuration of it
+(``cardbench/programs/<program>.py``) and the plain reference that judges
+it (``cardbench/reference/<reference>.py``).
 
 A request is one ``SparKVServer.generate(cid, prompt, max_new=N,
 policy=P, compare_exact=False, seed=s)``, issued by one client in a closed
@@ -15,6 +18,13 @@ tail it wrote, and a CUDA event after the call that yields the first
 output token), ``assemble``
 (the cache a request assembled), and ``record_function`` ranges around
 ``load_context``, ``assemble`` and ``_decode`` for the traced run.
+
+What it reads of the program, whatever the model, are its KV layers (the
+reference's ``kv_layers``) in one order: the rows of a registered
+context's ``StoredContext.exact_k`` and ``exact_v`` (L, 1, S, hkv, hd),
+the rows of the decode cache's ``tail_k`` and ``tail_v`` after a step,
+the rows of the (k, v) ``assemble`` returns, and the layer ``l`` of a
+streamed chunk (t, l), which ``ServeResult.n_streamed`` counts.
 """
 from __future__ import annotations
 
@@ -91,19 +101,24 @@ def reader(metric: str):
     return mod.read
 
 
+def _named(package: str, key: str, config: dict):
+    """The module ``cardbench.<package>.<config[key]>``; the key is
+    required."""
+    if key not in config:
+        raise KeyError(f"configuration {config.get('name')!r} has no "
+                       f"{key!r} key")
+    return importlib.import_module(f"cardbench.{package}.{config[key]}")
+
+
 def reference_module(config: dict):
     """The plain reference the configuration names."""
-    return importlib.import_module(f"cardbench.reference.{config['reference']}")
+    return _named("reference", "reference", config)
 
 
 def port_config(config: dict):
-    """The program's ModelConfig and SparKVConfig of a configuration."""
-    from repro_torch.configs.base import ModelConfig, MoEConfig, SparKVConfig
-    m = dict(config["model"])
-    if m.get("moe"):
-        m["moe"] = MoEConfig(**m["moe"])
-    return (ModelConfig(name=config["name"], **m),
-            SparKVConfig(**config["sparkv"]))
+    """The program's model configuration and SparKVConfig of a
+    configuration, from the program module it names."""
+    return _named("programs", "program", config).config(config)
 
 
 # -------------------------------------------------------------- clocks

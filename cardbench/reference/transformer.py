@@ -10,15 +10,17 @@ architecture differs from the published model.
 
 It imports nothing of the program. It reads the weights the benchmark made
 (the same tensors the program is given) by leaf name, in float32, one
-layer at a time, with TF32 off (``plain_fp32``). ``low`` makes it the
-control: every matmul operand rounded to float8 e4m3 with a per-tensor
-scale, the precision below the bfloat16 the configurations state.
+layer at a time; the check runs it with TF32 off (``common.plain_fp32``).
+``low`` makes it the control (``common.fp8``: every matmul operand rounded
+to float8 e4m3 with a per-tensor scale, the precision below the bfloat16
+the configurations state).
 
-``step_flops`` counts the model operations of one decode step.
+Every layer holds K and V (``kv_layers``), so a context's state is its
+(k, v) alone. ``step_flops`` counts the model operations of one decode
+step.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
@@ -26,26 +28,10 @@ import torch
 ROW_BLOCK = 256       # query rows a block of the plain attention takes
 
 
-@contextlib.contextmanager
-def plain_fp32():
-    """float32 matmuls in float32 on the card: TF32 off for the block."""
-    m = torch.backends.cuda.matmul.allow_tf32
-    c = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = m
-        torch.backends.cudnn.allow_tf32 = c
-
-
-def fp8(t: torch.Tensor) -> torch.Tensor:
-    """t rounded to float8 e4m3 under one scale that maps its largest
-    magnitude to the format's largest finite value (448), back in
-    float32."""
-    s = t.abs().amax().clamp(min=1e-30) / 448.0
-    return (t / s).to(torch.float8_e4m3fn).to(torch.float32) * s
+def kv_layers(m: dict) -> list:
+    """The layers that hold K and V, in the order of the program's stored
+    rows: all of them."""
+    return list(range(m["num_layers"]))
 
 
 def _same(t):
@@ -211,7 +197,7 @@ class Reference:
         return x, kv
 
     def context_kv(self, tokens: torch.Tensor):
-        """The KV cache of a context (S,): (k, v), each (L, S, hkv, hd),
+        """The state of a context (S,): (k, v), each (L, S, hkv, hd),
         keys after the rotary embedding; the context is routed as one
         batch."""
         _, kv = self.run(tokens, 0, capacity=True)

@@ -33,7 +33,8 @@ def _correct(run, **kw):
 
 # a run of each family, judged by the limits of its cell
 FAMILIES = [(False, "qwen3-4b-l1.hotpotqa-stream"),
-            (True, "granite-moe-3b-l2.govreport-decode")]
+            (True, "granite-moe-3b-l2.govreport-decode"),
+            (False, "qwen3-4b-l1.govreport-decode")]
 
 
 @pytest.fixture(scope="module")

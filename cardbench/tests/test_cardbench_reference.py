@@ -6,8 +6,9 @@ import numpy as np
 import pytest
 import torch
 
-from cardbench.reference import quant as Q
-from cardbench.reference.transformer import Reference, fp8
+from cardbench.reference import common as Q
+from cardbench.reference.common import fp8
+from cardbench.reference.transformer import Reference
 
 D, HQ, HKV, HD, F, V, L = 32, 4, 2, 8, 48, 96, 2
 

@@ -20,7 +20,8 @@ def cell(policy="sparkv", moe=False, max_new=6, limits_of="qwen3-4b-l1.hotpotqa-
         model["moe"] = {"num_experts": 8, "experts_per_token": 2,
                         "capacity_factor": 1.25}
     config = {"name": "tiny-moe" if moe else "tiny",
-              "reference": "transformer", "model": model,
+              "program": "transformer", "reference": "transformer",
+              "model": model,
               "sparkv": {"chunk_tokens": 32, "quant_bits": 5,
                          "quant_group": 32, "q_block": 16, "kv_block": 16,
                          "alloc_schedule": "uniform"},
