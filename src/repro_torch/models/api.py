@@ -1,5 +1,6 @@
-"""Unified model facade (PyTorch): the dense, MoE, SSM, hybrid and
-enc-dec families.
+"""Unified model facade (PyTorch): the dense, MoE, SSM, hybrid
+(Zamba2), hybrid_moe (Granite-4.0-H, ``granite_hybrid``; its config is a
+``GraniteHybridConfig``) and enc-dec families.
 
   init(generator, device)              -- a param dict drawn from a seed
   abstract_params / param_pspecs / param_shardings
@@ -16,6 +17,14 @@ enc-dec families.
   prefill_out_axes() / decode_cache(pre, rules)
                                        -- prefill's outputs' logical axes;
                                           the decode cache of a prefill
+  kv_layers() / context_state(pre) / plan_config()
+                                       -- what SparKV's server stores and
+                                          plans over (dense, moe,
+                                          hybrid_moe): the layers that
+                                          hold K and V, a prefill cache
+                                          split into (k, v, the rest), the
+                                          planner's ModelConfig of the
+                                          KV rows
   lay_out(tree, axes, rules)           -- DTensors laid out by logical axes
 """
 from __future__ import annotations
@@ -29,7 +38,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve
 from repro_torch.distributed.spmd import is_dtensor
 from repro_torch.models import layers as L
-from repro_torch.models import encdec, hybrid, mamba_lm, transformer
+from repro_torch.models import (encdec, granite_hybrid, hybrid, mamba_lm,
+                                transformer)
 from repro_torch.spans import span
 
 
@@ -91,6 +101,8 @@ class Model:
         logits = ("batch", "act_vocab")
         if fam in ("dense", "moe"):
             return (logits, {"k": ca["k"], "v": ca["v"]})
+        if fam == "hybrid_moe":
+            return (logits, {k: ca[k] for k in ("k", "v", "conv", "state")})
         if fam == "ssm":
             return (logits, ca)
         if fam == "hybrid":
@@ -105,12 +117,15 @@ class Model:
         zeroed buffers for what decode writes (the attention tails; the
         enc-dec self-attention caches) in the dtype of the context K
         (DTensors laid out by cache_axes under `rules` when `pre` holds
-        DTensors). The SSM state and conv window are prefill's own."""
+        DTensors). The SSM state and conv window are prefill's own. The
+        tails are named ``tail_k``/``tail_v`` (dense, moe, hybrid_moe: a
+        row for each KV layer), ``attn_tail_k``/``attn_tail_v`` (hybrid:
+        one for each application of the shared block)."""
         fam, cfg = self.cfg.family, self.cfg
         if fam == "ssm":
             return dict(pre)
-        ref = {"dense": "k", "moe": "k", "hybrid": "attn_k",
-               "encdec": "cross_k"}[fam]
+        ref = {"dense": "k", "moe": "k", "hybrid_moe": "k",
+               "hybrid": "attn_k", "encdec": "cross_k"}[fam]
         lead, b = pre[ref].shape[:2]
         hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         if fam == "encdec":
@@ -134,6 +149,33 @@ class Model:
                 out[name] = torch.zeros(shape, dtype=like.dtype,
                                         device=like.device)
         return out
+
+    # ---- what SparKV's server stores and plans over ----
+    def kv_layers(self) -> list:
+        """The layers that hold K and V, in the order of the prefill
+        cache's ``k``/``v`` rows and of the decode tails' rows."""
+        if self.cfg.family in ("dense", "moe"):
+            return list(range(self.cfg.num_layers))
+        if self.cfg.family == "hybrid_moe":
+            return granite_hybrid.kv_layers(self.cfg)
+        raise ValueError(f"SparKV serves dense, moe and hybrid_moe models, "
+                         f"not {self.cfg.family}")
+
+    def context_state(self, pre: dict) -> tuple:
+        """A prefill's cache as (k, v, rest): K and V of the KV layers,
+        each (len(kv_layers), b, s, hkv, hd), and whatever else the model
+        carries past the context ({} for a transformer; a hybrid_moe's
+        Mamba ``conv`` windows and ``state``s)."""
+        return pre["k"], pre["v"], {n: t for n, t in pre.items()
+                                    if n not in ("k", "v")}
+
+    def plan_config(self) -> ModelConfig:
+        """The ModelConfig SparKV's planner plans the (token-chunk, layer)
+        grid of the KV rows with: the model's own for a transformer, a
+        MoE transformer of the attention layers for a hybrid_moe."""
+        if self.cfg.family == "hybrid_moe":
+            return granite_hybrid.plan_config(self.cfg)
+        return self.cfg
 
     # ---- abstract inputs for a dry run (meta tensors) ----
     def input_specs(self, shape: ShapeConfig) -> dict:
@@ -205,10 +247,13 @@ _FAMILY_MODULES = {
     "dense": transformer,
     "moe": transformer,
     "hybrid": hybrid,
+    "hybrid_moe": granite_hybrid,
     "ssm": mamba_lm,
     "encdec": encdec,
 }
 
 
-def build_model(cfg: ModelConfig) -> Model:
+def build_model(cfg) -> Model:
+    """The model of a ModelConfig, or of a GraniteHybridConfig (family
+    hybrid_moe)."""
     return Model(cfg=cfg, _mod=_FAMILY_MODULES[cfg.family])

@@ -31,13 +31,15 @@ def ssm_dims(cfg):
     return d_inner, nheads, s.head_dim, s.state_dim
 
 
-def ssm_defs(cfg, *, stacked: int = 0) -> dict:
+def ssm_defs(cfg, *, stacked: int = 0, conv_bias: bool = False) -> dict:
+    """The Mamba2 block's params; `conv_bias` adds a bias to each conv
+    channel (x, B and C), as Mamba2's ``conv_bias`` does."""
     d = cfg.d_model
     d_inner, h, p, n = ssm_dims(cfg)
     cw = cfg.ssm.conv_width
     pre = (stacked,) if stacked else ()
     pax = ("layers",) if stacked else ()
-    return {
+    defs = {
         "wx": ParamDef(pre + (d, h, p),
                        pax + ("embed_fsdp", "ssm_heads", "ssm_pdim")),
         "wz": ParamDef(pre + (d, h, p),
@@ -62,15 +64,30 @@ def ssm_defs(cfg, *, stacked: int = 0) -> dict:
                        pax + ("ssm_heads", "ssm_pdim", "embed_fsdp"),
                        scale=0.02 / np.sqrt(2 * max(cfg.num_layers, 1))),
     }
+    if conv_bias:
+        defs["conv_x_bias"] = ParamDef(pre + (h, p),
+                                       pax + ("ssm_heads", "ssm_pdim"),
+                                       init="zeros")
+        defs["conv_B_bias"] = ParamDef(pre + (n,), pax + ("state",),
+                                       init="zeros")
+        defs["conv_C_bias"] = ParamDef(pre + (n,), pax + ("state",),
+                                       init="zeros")
+    return defs
 
 
-def _causal_conv(x, w):
-    """Depthwise causal conv. x: (b, s, c), w: (cw, c); fp32 sums."""
+_CONV_BIAS = ("conv_x_bias", "conv_B_bias", "conv_C_bias")
+
+
+def _causal_conv(x, w, bias=None):
+    """Depthwise causal conv. x: (b, s, c), w: (cw, c), bias: (c,) or
+    None; fp32 sums."""
     cw, s = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, cw - 1, 0))
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(cw):
         out = out + xp[:, i:i + s].float() * w[i].float()
+    if bias is not None:
+        out = out + bias.float()
     return out.to(x.dtype)
 
 
@@ -152,7 +169,8 @@ def ssd_chunked(x, dt, A, B, C, *, chunk_len: int,
     return y
 
 
-def ssm_block(cfg, p, x, *, cache=None, return_state=False):
+def ssm_block(cfg, p, x, *, cache=None, return_state=False,
+              norm_group: int = 0, norm_eps: float = 1e-6):
     """Full Mamba2 block: proj -> conv -> SSD -> gated norm -> out proj.
 
     x: (b, s, d). cache (decode, s == 1): {"conv": (b, cw-1, ch),
@@ -160,7 +178,12 @@ def ssm_block(cfg, p, x, *, cache=None, return_state=False):
     None); the prefill cache's conv holds the last cw-1 pre-conv inputs
     [x, B, C], left-padded when s < cw-1. On DTensors (under sharding
     rules) the mixing runs on local blocks (``_mix_sharded``), for the
-    train pass, prefill and decode alike."""
+    train pass, prefill and decode alike.
+
+    The gated RMSNorm normalises each group of `norm_group` consecutive
+    channels of the heads' outputs (0: each head alone, head_dim
+    channels) with `norm_eps`; a bias of the conv (``ssm_defs``'
+    `conv_bias`) is added where ``p`` holds one."""
     xi = spmd.einsum("bsd,dhp->bshp", x, p["wx"])
     z = spmd.einsum("bsd,dhp->bshp", x, p["wz"])
     Bv = spmd.einsum("bsd,dn->bsn", x, p["wB"])
@@ -170,15 +193,24 @@ def ssm_block(cfg, p, x, *, cache=None, return_state=False):
     A = -torch.exp(p["A_log"].float())
 
     xi = constrain(xi, "batch", "seq", None, "ssm_pdim")
-    mix = {k: p[k] for k in ("conv_x", "conv_B", "conv_C", "D")}
+    mix = {k: p[k] for k in ("conv_x", "conv_B", "conv_C", "D")
+           + _CONV_BIAS if k in p}
     if spmd.is_dtensor(xi):
+        if norm_group or _CONV_BIAS[0] in mix:
+            raise NotImplementedError("a norm group wider than a head or "
+                                      "a conv bias under sharding rules")
         g, new_cache = _mix_sharded(cfg, mix, xi, z, Bv, Cv, dt, A, cache,
                                     return_state)
     else:
         g, new_cache = _mix(cfg, mix, xi, z, Bv, Cv, dt, A, cache,
                             return_state)
+    shape = g.shape
+    if norm_group:
+        g = g.reshape(*shape[:2], -1, norm_group)
     var = torch.mean(g * g, dim=-1, keepdim=True)
-    g = g * torch.rsqrt(var + 1e-6)
+    g = g * torch.rsqrt(var + norm_eps)
+    if norm_group:
+        g = g.reshape(shape)
     g = (g * (1.0 + p["norm"].float())).to(x.dtype)
     out = spmd.einsum("bshp,hpd->bsd", g, p["wo"])
     return out, new_cache
@@ -193,11 +225,14 @@ def _mix(cfg, mix, xi, z, Bv, Cv, dt, A, cache, return_state):
     n = Bv.shape[-1]
     xflat = xi.reshape(b, s, h * pd)
     convw = mix["conv_x"].reshape(s_cfg.conv_width, h * pd)
+    bias = ((mix["conv_x_bias"].reshape(h * pd), mix["conv_B_bias"],
+             mix["conv_C_bias"]) if "conv_x_bias" in mix
+            else (None, None, None))
     new_cache = None
     if cache is None:
-        xconv = _causal_conv(xflat, convw)
-        Bconv = _causal_conv(Bv, mix["conv_B"])
-        Cconv = _causal_conv(Cv, mix["conv_C"])
+        xconv = _causal_conv(xflat, convw, bias[0])
+        Bconv = _causal_conv(Bv, mix["conv_B"], bias[1])
+        Cconv = _causal_conv(Cv, mix["conv_C"], bias[2])
         if return_state:
             cw = s_cfg.conv_width
             tail = torch.cat([xflat, Bv, Cv], dim=-1)[:, -(cw - 1):, :]
@@ -210,7 +245,10 @@ def _mix(cfg, mix, xi, z, Bv, Cv, dt, A, cache, return_state):
         win = torch.cat([cache["conv"], cat], dim=1)           # (b,cw,ch)
         allw = torch.cat([convw, mix["conv_B"], mix["conv_C"]], dim=-1)
         conv_out = torch.sum(win.float() * allw.float()[None], dim=1,
-                             keepdim=True).to(xi.dtype)         # (b,1,ch)
+                             keepdim=True)                      # (b,1,ch)
+        if bias[0] is not None:
+            conv_out = conv_out + torch.cat(bias).float()
+        conv_out = conv_out.to(xi.dtype)
         xconv = conv_out[..., :h * pd]
         Bconv = conv_out[..., h * pd:h * pd + n]
         Cconv = conv_out[..., h * pd + n:]

@@ -85,8 +85,9 @@ def _remat(cfg, fn):
 
 
 def decode_attention(cfg, bp_attn, q, k, v, ctx_k, ctx_v, tail_k, tail_v,
-                     tail_pos: int):
-    """Attend a single new token over [static context] + [tail buffer].
+                     tail_pos: int, scale=None):
+    """Attend a single new token over [static context] + [tail buffer],
+    its scores scaled by `scale` (default head_dim ** -0.5).
 
     ctx_*: (b, cap, hkv, hd) read-only, possibly seq-sharded;
     tail_*: (b, DECODE_TAIL, hkv, hd). The new (k, v) is written at
@@ -104,10 +105,10 @@ def decode_attention(cfg, bp_attn, q, k, v, ctx_k, ctx_v, tail_k, tail_v,
         spmd.write(tail_v, slot, v[:, 0])
         p1 = L.flash_attention(q, ctx_k, ctx_v, causal=False,
                                kv_chunk=max(cfg.attn_chunk, 2048),
-                               return_stats=True)
+                               scale=scale, return_stats=True)
         p2 = L.flash_attention(q, tail_k, tail_v, causal=False,
                                kv_len=tail_pos + 1, kv_chunk=DECODE_TAIL,
-                               return_stats=True)
+                               scale=scale, return_stats=True)
         o = L.merge_attention([p1, p2])
     return o, tail_k, tail_v
 

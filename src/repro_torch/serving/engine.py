@@ -5,6 +5,14 @@ side: exact KV + per-chunk quantized+Huffman bitstreams + chunk stats);
 each request then *loads* that context through a policy pipeline
 (sparkv / strong_hybrid / cachegen / local_prefill):
 
+  - what a context stores: the exact K and V of the model's KV layers
+    (``Model.kv_layers``: every layer of a transformer, the attention
+    layers of a hybrid_moe model), one row a KV layer; the compressed
+    (token-chunk, row) chunks of those rows, which the planner plans
+    over; and ``rest``, whatever else the model carries past the context
+    (a hybrid_moe model's Mamba conv windows and SSM states), kept exact
+    on the device and restored whole for every request, never written
+    by one;
   - timing & energy come from the discrete-event engine (virtual clock,
     real compressed bytes, ground-truth compute latencies);
   - the KV cache content is assembled concretely on the server's device:
@@ -28,7 +36,8 @@ V: on the card its bytes' copy over, the launch and the codes' copy
 back), ``decode.readback`` (the tokens' and logits' copies to the host,
 where the host waits for the queued steps), and the model's own
 (``models.api.Model.decode_step``): ``decode.step`` (the dispatch of one
-step), ``decode.step.attention`` and ``decode.step.ffn`` (summed over
+step), ``decode.step.attention``, ``decode.step.ffn`` and, in a
+hybrid_moe model, ``decode.step.ssm`` (each Mamba mixer) (summed over
 layers). Under a ``torch.profiler`` each span is also a
 ``repro_torch.<name>`` range; a request's ranges are those under its
 ``generate``.
@@ -61,11 +70,17 @@ from repro_torch.spans import span
 @dataclasses.dataclass
 class StoredContext:
     tokens: np.ndarray                 # (1, S)
-    exact_k: torch.Tensor              # (L, 1, S, hkv, hd) fp32, on device
+    exact_k: torch.Tensor              # (L_kv, 1, S, hkv, hd) fp32, on card
     exact_v: torch.Tensor
     encoded: dict                      # Chunk(t,l,0) -> (enc_k, enc_v, qt_k, qt_v)
     wl: WorkloadChunks
     n_chunks: int
+    # the model's state past the context beside K and V
+    # (Model.context_state)
+    rest: dict = dataclasses.field(default_factory=dict)
+
+    def rest_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.rest.values())
 
 
 @dataclasses.dataclass
@@ -79,6 +94,7 @@ class ServeResult:
     n_computed: int
     migrations: int
     wall_s: float
+    state_bytes: int = 0               # recurrent state restored (rest)
 
 
 class SparKVServer:
@@ -118,7 +134,6 @@ class SparKVServer:
         signal, the allocator turns (attention mass x entropy) saliency
         into per-chunk bits, and any chunk allocated off the base width
         is re-quantized at its own width before entropy coding."""
-        cfg = self.model.cfg
         s = tokens.shape[1]
         ct = self.chunk_tokens
         if tokens.shape[0] != 1 or s % ct:
@@ -129,11 +144,12 @@ class SparKVServer:
             tok = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                   device=self.device)
             _, cache = self.model.prefill(self.params, {"tokens": tok})
-            exact_k = cache["k"].float()                # (L, 1, S, hkv, hd)
-            exact_v = cache["v"].float()
+            k, v, rest = self.model.context_state(cache)
+            exact_k = k.float()                         # (L_kv, 1, S, hkv, hd)
+            exact_v = v.float()
             k = exact_k.cpu().numpy()
             v = exact_v.cpu().numpy()
-        n_t, n_l = s // ct, cfg.num_layers
+        n_t, n_l = s // ct, exact_k.shape[0]
 
         # pass 1: base-width quantization + the measured entropy signal
         quant = {}
@@ -193,7 +209,7 @@ class SparKVServer:
         self._next_id += 1
         self.contexts[cid] = StoredContext(
             tokens=tokens, exact_k=exact_k, exact_v=exact_v,
-            encoded=encoded, wl=wl, n_chunks=n_t * n_l)
+            encoded=encoded, wl=wl, n_chunks=n_t * n_l, rest=rest)
         return cid
 
     def _measure_active_blocks(self, tokens, n_t, n_l) -> np.ndarray:
@@ -223,27 +239,31 @@ class SparKVServer:
         """Train the planner's latency MLP on this server's device, as
         ``baselines._predictor_cache`` would on first use (same samples
         and epochs), so a CPU server never builds one for the card."""
-        key = (self.model.cfg.name, self.profile)
+        cfg = self.model.plan_config()
+        key = (cfg.name, self.profile)
         if key not in B._PRED_CACHE:
-            p = LatencyPredictor(self.model.cfg, PROFILES[self.profile],
+            p = LatencyPredictor(cfg, PROFILES[self.profile],
                                  device=self.device)
             p.fit(4000, epochs=150)
             B._PRED_CACHE[key] = p
 
     def load_context(self, cid: int, *, policy: str = "sparkv",
                      util: Optional[float] = None, seed: Optional[int] = None):
-        """Run the loading pipeline; returns (bf16 cache, PipelineResult)."""
+        """Run the loading pipeline; returns (the context's state: bf16 K
+        and V as assembled, and ``rest``; PipelineResult). The planner
+        plans the grid of KV rows with ``Model.plan_config``."""
         st = self.contexts[cid]
         u = self.utilization() if util is None else util
         net = NETWORKS[self.network]
         with self._phase("plan"):
             self._ensure_predictor()
-            res = B.PIPELINES[policy](self.model.cfg, st.wl, self.profile,
-                                      net, self.spcfg, util=u,
+            res = B.PIPELINES[policy](self.model.plan_config(), st.wl,
+                                      self.profile, net, self.spcfg, util=u,
                                       seed=seed or self.seed)
         streamed = sorted(getattr(res.engine, "streamed_set", set()))
         k, v = self.assemble(st, streamed)
-        cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+        cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16),
+                 **st.rest}
         return cache, res
 
     def assemble(self, st: StoredContext, streamed) -> tuple:
@@ -290,7 +310,8 @@ class SparKVServer:
                 toks, logits_seq = self._decode(st, cache, prompt, max_new)
                 if compare_exact:
                     exact_cache = {"k": st.exact_k.to(torch.bfloat16),
-                                   "v": st.exact_v.to(torch.bfloat16)}
+                                   "v": st.exact_v.to(torch.bfloat16),
+                                   **st.rest}
                     etoks, elogits = self._decode(st, exact_cache, prompt,
                                                   max_new)
                     agree = float(np.mean(toks == etoks))
@@ -304,7 +325,7 @@ class SparKVServer:
                 top1_agreement=agree, mean_kl=kl,
                 n_streamed=eng.n_streamed, n_computed=eng.n_computed,
                 migrations=getattr(eng, "n_migrations", 0),
-                wall_s=time.time() - t_wall)
+                wall_s=time.time() - t_wall, state_bytes=st.rest_bytes())
         finally:
             self.active_requests -= 1
 
@@ -344,7 +365,7 @@ class SparKVServer:
                 policy=policy, seed=i, wl=st.wl, deadline_s=deadline_s,
                 max_new_tokens=max_new_tokens, tpot_slo_s=tpot_slo_s))
         cluster = ServingCluster(
-            self.model.cfg, self.spcfg, self.profile, self.network,
+            self.model.plan_config(), self.spcfg, self.profile, self.network,
             capacity=self.capacity,
             max_concurrency=max_concurrency or self.capacity,
             closed_loop=closed_loop, static_util=static_util,
@@ -353,14 +374,14 @@ class SparKVServer:
         return cluster.run(specs)
 
     def _decode(self, st: StoredContext, cache, prompt, max_new):
-        """Greedy decode; the next token stays on the device, so the loop
-        does not wait for the host until the end."""
+        """Greedy decode from the context state `cache` (``load_context``'s;
+        the steps write their own tails and leave it as it is); the next
+        token stays on the device, so the loop does not wait for the host
+        until the end."""
         cfg = self.model.cfg
         s = st.tokens.shape[1]
         with self._phase("decode"):
-            full = self.model.init_cache(1, s, device=self.device)
-            full["k"] = cache["k"][:, :, :s].to(full["k"].dtype)
-            full["v"] = cache["v"][:, :, :s].to(full["v"].dtype)
+            full = self.model.decode_cache(cache)
             toks, logits_list = [], []
             cur = None
             pos = s
