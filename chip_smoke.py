@@ -30,7 +30,10 @@ Phases, in order; any failure exits non-zero:
      two requests (sparkv, local_prefill), 8 new tokens each, the
      streaming one Huffman-decoded in one huffman_decode launch a streamed
      chunk and dequantized in exactly one kv_dequant launch, and its
-     cache within two quantization steps of the exact one;
+     cache within two quantization steps of the exact one; each
+     request's decode attends through the flash-decode kernel, one fast
+     launch a layer a step (ServeResult.attn_kernel_calls = steps x
+     layers, attn_eager_calls 0), as in paths B, F and O;
      then the dequant of every stored chunk timed on the host clock two
      ways in turns: the per-chunk route (a launch per chunk tensor, plus
      a slice copy) and the one staged launch;
@@ -49,8 +52,11 @@ Phases, in order; any failure exits non-zero:
   6. path D: decode attention over path A's sparkv cache, one
      kernels/decode_attn/ops.decode_attention call per layer (36 calls,
      one kernel launch each), each against the plain version and
-     layers.flash_attention; then one long cache (32768 positions,
-     kv_len 32000) in bf16 and fp32;
+     layers.flash_attention; then the serving path's form, one call a
+     layer: the cache as the context and a 128-slot decode tail with
+     1, 57 or 128 slots filled as a second segment, against the plain
+     version, and timed; then one long cache (32768 positions, kv_len
+     32000) in bf16 and fp32;
   7. path K: both attention kernels at the head shapes (hq, hkv,
      head_dim) of every attention-bearing config, ten in all, at full
      width and b = 1, seeded random q/k/v: sparse_prefill_attention over
@@ -133,8 +139,11 @@ Phases, in order; any failure exits non-zero:
      for decode); sparkv-qwen3-4b, then mamba2-130m, at full width and
      depth, random bf16 weights from a seed: a 2048-token prefill and 8
      decode steps over DTensors beside the plain port on the same
-     weights and tokens, every logits tensor and the prefill and final
-     caches within 1e-6; ms a prefill and a decode step (CUDA events)
+     weights and tokens (its decode attention on the eager path that
+     DTensors take), every logits tensor and the prefill and final
+     caches within 1e-6; the decode logits beside the plain port's
+     through the flash-decode kernel (printed: max difference, top-1
+     agreement); ms a prefill and a decode step (CUDA events)
      and ops a call, through DTensor and plain; the group is destroyed;
 18. path R: the dry run in a subprocess: a fake 256-rank process group,
      the 16x16 production mesh typed CUDA over fake tensors, and the
@@ -195,6 +204,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 
@@ -1089,11 +1099,14 @@ def block_size_sweep(err, device, *, hq=32, hkv=8, d=128, n_tokens=1536,
 
 def path_d(cache, hq, err, device, *, seed=0):
     """Decode attention over path A's assembled cache, one call per
-    layer; returns (launches during the path, the kernel's perf entry)."""
+    layer; then, one call per layer, the serving path's form: the cache
+    as the context and a partly filled decode tail as a second segment.
+    Returns (launches during the path, the kernel's perf entry)."""
     import torch
     from repro_torch.kernels.decode_attn import kernel as DK
     from repro_torch.kernels.decode_attn import ops as DO
     from repro_torch.models import layers as L
+    from repro_torch.models.transformer import DECODE_TAIL
 
     ck, cv = cache["k"], cache["v"]
     n_l, b, skv, hkv, d = ck.shape
@@ -1103,11 +1116,11 @@ def path_d(cache, hq, err, device, *, seed=0):
                      device=device).to(ck.dtype)
     print(f"[path D] cache k/v {tuple(ck.shape)} {ck.dtype}, q "
           f"{tuple(qs.shape[1:])}, kv_len {kv_len}", flush=True)
-    DK.reset_launches()
+    before = DK.LAUNCHES["decode_attention"]
     outs = [DO.decode_attention(qs[i], ck[i], cv[i], kv_len)
             for i in range(n_l)]
     torch.cuda.synchronize()
-    launches = DK.LAUNCHES["decode_attention"]
+    launches = DK.LAUNCHES["decode_attention"] - before
     check(launches == n_l,
           f"path D: {launches} decode kernel launches, not one for each of "
           f"{n_l} calls")
@@ -1129,6 +1142,23 @@ def path_d(cache, hq, err, device, *, seed=0):
           f"each reference's largest magnitude under 1)")
     check(ok, "path D beyond tolerance")
 
+    # the serving path's form: the context and a DECODE_TAIL-slot tail of
+    # which the first 1, 57 or 128 slots are filled, one launch a layer
+    tk, tv = (torch.randn((n_l, b, DECODE_TAIL, hkv, d), generator=gen,
+                          device=device).to(ck.dtype) for _ in range(2))
+    fills = (1, 57, DECODE_TAIL)
+    before = DK.LAUNCHES["decode_attention"]
+    for i in range(n_l):
+        n2 = fills[i % len(fills)]
+        _compare_close(err, "decode_attention", DO.decode_attention(
+            qs[i], ck[i], cv[i], kv_len, k2=tk[i], v2=tv[i], kv_len2=n2),
+            DK.decode_attention_plain(qs[i], ck[i], cv[i], kv_len, k2=tk[i],
+                                      v2=tv[i], kv_len2=n2),
+            "bfloat16", f"layer {i}: context {kv_len} + tail {n2}")
+    two = DK.LAUNCHES["decode_attention"] - before
+    check(two == n_l, f"path D: {two} launches for {n_l} two-segment calls")
+    launches += two
+
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
 
     def timings(q, k, v, n):
@@ -1149,6 +1179,10 @@ def path_d(cache, hq, err, device, *, seed=0):
           f"plain {plain_ms:.6f} ms, SDPA {lib_ms:.6f} ms, bound "
           f"{perf['bound_ms']:.6f} ms ({perf['bound_by']}, {nbytes} B); "
           f"kernel {rate(nbytes, ms)}")
+    two_ms = time_ms(lambda: DK.decode_attention(
+        qs[0], ck[0], cv[0], kv_len, k2=tk[0], v2=tv[0], kv_len2=57), flush)
+    print(f"[path D] decode_attention context {kv_len} + tail 57 of "
+          f"{DECODE_TAIL} (two segments): kernel {two_ms:.6f} ms")
 
     # one long cache: 32768 positions, 32000 valid; in fp32 too, where the
     # tolerance would catch a dropped or misweighted block
@@ -1561,6 +1595,7 @@ def o_request(srv, seen, cid, device, count, *, seed=0, max_new=130):
     dequantized into fp16 caches in one launch, bit-equal to the plain
     version."""
     import torch
+    from repro_torch.kernels.decode_attn import kernel as DK
     from repro_torch.kernels.kv_dequant import kernel as K
     from repro_torch.kernels.kv_dequant import ops as KO
     from repro_torch.models.transformer import DECODE_TAIL
@@ -1570,10 +1605,20 @@ def o_request(srv, seen, cid, device, count, *, seed=0, max_new=130):
     prompt = rng.integers(0, srv.model.cfg.vocab_size, size=4)
     K.reset_launches()
     seen.clear()
+    attn0 = dict(DK.LAUNCHES)
     with NoPlain():
         res = srv.generate(cid, prompt, max_new=max_new, policy="sparkv",
                            compare_exact=False, seed=1)
         torch.cuda.synchronize()
+    attn = {k: DK.LAUNCHES[k] - attn0[k] for k in DK.LAUNCHES}
+    n_attn = (len(prompt) + max_new) * srv.model.cfg.num_layers
+    check(res.attn_kernel_calls == attn["decode_attention"] == n_attn
+          and res.attn_eager_calls == 0
+          and attn["decode_attention_generic"] == 0,
+          f"path O request: decode attention {res.attn_kernel_calls} "
+          f"kernel, {res.attn_eager_calls} eager calls, launches {attn}, "
+          f"not {n_attn} fast launches")
+    count("decode_attention", n_attn)
     want = 1 if res.n_streamed else 0
     check(dict(K.LAUNCHES) == {"kv_dequant": want, "kv_dequant_mixed": 0},
           f"path O request: dequant launches {dict(K.LAUNCHES)}")
@@ -1586,7 +1631,8 @@ def o_request(srv, seen, cid, device, count, *, seed=0, max_new=130):
     print(f"[path O] sparkv request, prompt {len(prompt)} + {max_new} new "
           f"tokens ({len(prompt) + max_new - DECODE_TAIL} past the "
           f"{DECODE_TAIL}-slot tail): streamed {res.n_streamed}, launches "
-          f"{dict(K.LAUNCHES)}, {time.perf_counter() - t0:.1f} s wall (host "
+          f"{dict(K.LAUNCHES)}, decode attention {n_attn} kernel launches, "
+          f"{time.perf_counter() - t0:.1f} s wall (host "
           f"clock; decode and Huffman decode on the host); tokens "
           f"{res.tokens[:8].tolist()}...", flush=True)
     chunks = sorted(seen["res"].engine.streamed_set)
@@ -1652,8 +1698,8 @@ def path_o(err, srv, seen, cid, device, *, seed=0, n_tokens=2048,
                 "block_sparse_attention_generic": 0, "decode_attention": 0,
                 "decode_attention_generic": 0, "kv_dequant": 0}
 
-    def count(name):
-        launches[name] = launches.get(name, 0) + 1
+    def count(name, n=1):
+        launches[name] = launches.get(name, 0) + n
         return name
 
     o_generic_shapes(err, device, gen, count)
@@ -1709,11 +1755,15 @@ def build_server(cfg, spcfg, device, seed):
 
 def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
                max_new=8, keep=None):
-    """Register one context and serve one request per policy; returns the
-    kernels' launches during the path, reset just before it. `keep`, a
-    dict, receives the server's params and the cache of the first request
-    that streamed chunks."""
+    """Register one context and serve one request per policy; yields
+    (policy, result, the dequant kernels' launches during the request,
+    the streamed chunks' widths, the decode-attention launches during
+    the request). Each request's decode attends through the flash-decode
+    kernel, one fast launch a layer a step (``attn_kernel_calls``) and no
+    eager call. `keep`, a dict, receives the server's params and the
+    cache of the first request that streamed chunks."""
     from repro_torch.device import sync
+    from repro_torch.kernels.decode_attn import kernel as DK
     from repro_torch.kernels.huffman_decode import kernel as HK
     from repro_torch.kernels.kv_dequant import kernel as K
 
@@ -1742,6 +1792,7 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
     for policy in policies:
         before = dict(K.LAUNCHES)
         decoded = HK.LAUNCHES["huffman_decode"]
+        attn0 = dict(DK.LAUNCHES)
         phases = dict(srv.phase_s)
         seen.clear()
         prompt = rng.integers(0, cfg.vocab_size, size=4)
@@ -1749,12 +1800,27 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
                            seed=1)
         sync(device)
         launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        attn = {k: DK.LAUNCHES[k] - attn0[k] for k in DK.LAUNCHES}
         split = {k: srv.phase_s[k] - phases.get(k, 0.0)
                  for k in srv.phase_s if srv.phase_s[k] - phases.get(k, 0.0)}
         print(f"[{label}] {policy:13s} TTFT(sim) {res.ttft_s:.6f} s, top-1 "
               f"{res.top1_agreement}, KL {res.mean_kl:.6f}, streamed "
               f"{res.n_streamed}/computed {res.n_computed}, wall "
               f"{res.wall_s:.3f} s, launches {launched}", flush=True)
+        steps = len(prompt) + max_new
+        print(f"[{label}] {policy:13s} decode attention: "
+              f"{res.attn_kernel_calls} kernel launches, "
+              f"{res.attn_eager_calls} eager calls for {steps} steps x "
+              f"{cfg.num_layers} layers; launches in the request {attn} "
+              "(the exact-cache comparison's decode included)", flush=True)
+        check(res.attn_kernel_calls == steps * cfg.num_layers
+              and res.attn_eager_calls == 0,
+              f"{policy}: decode attention took {res.attn_kernel_calls} "
+              f"kernel launches and {res.attn_eager_calls} eager calls, not "
+              f"{steps * cfg.num_layers} and 0")
+        check(attn["decode_attention_generic"] == 0
+              and attn["decode_attention"] >= res.attn_kernel_calls,
+              f"{policy}: decode attention launches {attn}")
         print(f"[{label}] {policy:13s} wall split: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in split.items()), flush=True)
         print(f"[{label}] {policy:13s} dequant phase "
@@ -1784,7 +1850,7 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
                 keep["cache"] = cache
         widths = {q.bits for c in seen["res"].engine.streamed_set
                   for q in st.encoded[c][2:]}
-        yield policy, res, launched, widths
+        yield policy, res, launched, widths, attn["decode_attention"]
 
 
 def dequant_routes(srv, st, device, *, turns=2):
@@ -2173,14 +2239,16 @@ def moe_drop_rate(srv, tokens, label):
 
 def path_f(cfg, spcfg, device, *, n_tokens=2048):
     """A MoE model (granite-moe-3b-a800m) through SparKVServer: sparkv and
-    local_prefill; returns the kv_dequant launches during the path's
-    requests and the largest error of its assembled cache against the
+    local_prefill; returns the kv_dequant and decode-attention launches
+    during the path's requests and the largest error of its assembled cache against the
     plain dequant."""
     kept, err = {}, 0.0
-    launches = {"kv_dequant": 0, "kv_dequant_mixed": 0}
-    for policy, res, launched, widths in serve_path(
+    launches = {"kv_dequant": 0, "kv_dequant_mixed": 0,
+                "decode_attention": 0}
+    for policy, res, launched, widths, attn in serve_path(
             "path F", cfg, spcfg, n_tokens, ("sparkv", "local_prefill"),
             device, keep=kept):
+        launches["decode_attention"] += attn
         want = 1 if res.n_streamed else 0
         check(launched == {"kv_dequant": want, "kv_dequant_mixed": 0},
               f"path F {policy}: dequant launches {launched}, not {want} "
@@ -2767,16 +2835,19 @@ def path_p(cfgs, device, *, n_tokens=2048, new=8, seed=0):
     rules (make_rules for prefill, weight-stationary for decode). Each
     config at full width and depth, random bf16 weights from a seed: an
     n_tokens prefill and `new` decode steps over DTensors beside the plain
-    port on the same weights and tokens (seeded decode tokens): every
-    logits tensor and the prefill and final caches
-    within 1e-6; ms (CUDA events) and ops a call, through DTensor and
-    plain. The group is destroyed at the end."""
+    port on the same weights and tokens (seeded decode tokens; the plain
+    port's decode attention on the eager path DTensors take): every
+    logits tensor and the prefill and final caches within 1e-6; the
+    DTensor decode logits beside the plain port as the card runs it
+    (decode attention through the flash-decode kernel), printed with
+    their top-1 agreement; ms (CUDA events) and ops a call, through
+    DTensor and plain. The group is destroyed at the end."""
     import torch
     import torch.distributed as dist
     from repro_torch.distributed.sharding import make_rules
     from repro_torch.distributed.spmd import is_dtensor
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, transformer
     from repro_torch.training.trainer import shard_tree
     dist.init_process_group(
         "nccl", store=dist.HashStore(), rank=0, world_size=1,
@@ -2795,7 +2866,12 @@ def path_p(cfgs, device, *, n_tokens=2048, new=8, seed=0):
                                      device=device)
             toks = [torch.as_tensor(t, device=device) for t in
                     rng.integers(0, cfg.vocab_size, size=(new, 1))]
-            plain = _serve(model, params, tokens, toks, None, None)
+            kernel = _serve(model, params, tokens, toks, None, None)[0]
+            # the plain port's decode attention on the eager path that
+            # DTensors take, in place of its flash-decode kernel
+            with mock.patch.object(transformer, "_kernel_path",
+                                   lambda *a: False):
+                plain = _serve(model, params, tokens, toks, None, None)
             rp = make_rules(cfg, mesh)
             rd = make_rules(cfg, mesh, weight_stationary=True)
             sharded = _serve(model, shard_tree(params,
@@ -2810,8 +2886,13 @@ def path_p(cfgs, device, *, n_tokens=2048, new=8, seed=0):
                         zip(_leaves(sharded[1]), _leaves(plain[1])))
             d_fin = max(_max_diff(full(a), b) for a, b in
                         zip(_leaves(sharded[2]), _leaves(plain[2])))
+            d_kern = max(_max_diff(full(a), b)
+                         for a, b in zip(sharded[0][1:], kernel[1:]))
+            top = max(float(b.float().abs().max()) for b in kernel[1:])
+            agree = sum(bool(torch.equal(full(a).argmax(-1), b.argmax(-1)))
+                        for a, b in zip(sharded[0][1:], kernel[1:]))
             fin = all(bool(torch.isfinite(t.float()).all())
-                      for t in plain[0])
+                      for t in plain[0] + kernel)
             print(f"[path P] {cfg.name} ({cfg.family}), {cfg.num_layers} "
                   f"layers, d_model {cfg.d_model}: prefill {n_tokens} "
                   f"tokens {sharded[3]:.3f} ms over DTensors vs "
@@ -2824,13 +2905,16 @@ def path_p(cfgs, device, *, n_tokens=2048, new=8, seed=0):
                   f"decode step {sharded[6]} vs {plain[6]}", flush=True)
             print(f"[path P] {cfg.name}: max |DTensor - plain| logits "
                   f"{d_log:.3e} ({len(plain[0])} calls), prefill cache "
-                  f"{d_pre:.3e}, final cache {d_fin:.3e} (limit 1e-6 each)",
-                  flush=True)
+                  f"{d_pre:.3e}, final cache {d_fin:.3e} (limit 1e-6 each); "
+                  f"decode logits against the kernel route: max |diff| "
+                  f"{d_kern:.3e} of largest |logit| {top:.3e}, top-1 equal "
+                  f"in {agree}/{new} steps (the kernel keeps scores in "
+                  "fp32, the eager path rounds them to bf16)", flush=True)
             check(fin, f"path P {cfg.name}: plain logits not finite")
             check(max(d_log, d_pre, d_fin) <= 1e-6,
                   f"path P {cfg.name}: DTensor run off the plain one "
                   f"({d_log}, {d_pre}, {d_fin})")
-            del params, plain, sharded
+            del params, plain, sharded, kernel
             free_card()
     finally:
         free_card()
@@ -3166,9 +3250,10 @@ def main():
         # path B runs one)
         spcfg = SparKVConfig(chunk_tokens=1024)
         kept = {}
-        for policy, res, launched, widths in serve_path(
+        for policy, res, launched, widths, attn in serve_path(
                 "path A", cfg, spcfg, 2048, ("sparkv", "local_prefill"),
                 device, keep=kept):
+            launches["decode_attention"] += attn
             want = 1 if res.n_streamed else 0
             check(launched == {"kv_dequant": want, "kv_dequant_mixed": 0},
                   f"{policy}: dequant launches {launched}, not {want} "
@@ -3185,8 +3270,9 @@ def main():
         cfg_b = dataclasses.replace(cfg, num_layers=4)
         spcfg_b = SparKVConfig(chunk_tokens=1024,
                                alloc_schedule="attention")
-        for policy, res, launched, widths in serve_path(
+        for policy, res, launched, widths, attn in serve_path(
                 "path B", cfg_b, spcfg_b, 2048, ("cachegen",), device):
+            launches["decode_attention"] += attn
             print(f"[path B] streamed chunk widths {sorted(widths)}")
             check(len(widths) > 1, "path B streamed only one width")
             check(launched == {"kv_dequant": 0, "kv_dequant_mixed": 1},
@@ -3204,8 +3290,9 @@ def main():
         print(f"[path C] block sizes {time.perf_counter() - t0:.1f} s wall "
               "(host clock)", flush=True)
         # path D: decode attention over path A's sparkv cache
-        launches["decode_attention"], perf["decode_attention"] = path_d(
+        d_launches, perf["decode_attention"] = path_d(
             kept.pop("cache"), cfg.num_heads, att_err, device)
+        launches["decode_attention"] += d_launches
         # path K: both attention kernels at every config's head shapes
         t0 = time.perf_counter()
         k_launches = path_k(att_err, device)

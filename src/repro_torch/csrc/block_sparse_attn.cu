@@ -772,8 +772,10 @@ bsa_generic_kernel(const typename Eng::E* __restrict__ q,
   Eng eng;
   gen::attend<Eng, BIG>(
       eng, reinterpret_cast<E*>(smem4), walk,
-      q + ((size_t)bh * sq + row0) * d, (size_t)d, R, k + kv_off,
-      v + kv_off, (size_t)d, d, blockIdx.y, causal, row0, scale_log2,
+      q + ((size_t)bh * sq + row0) * d, (size_t)d, R,
+      gen::Rows<E>{k + kv_off, (size_t)d},
+      gen::Rows<E>{v + kv_off, (size_t)d}, d, blockIdx.y, causal, row0,
+      scale_log2,
       [&](int r, int c, float, float l, float a) {
         op[(size_t)r * d + c] = from_f32<E>(l > 0.f ? a / l : 0.f);
       });

@@ -6,10 +6,19 @@
 // against a cache k/v (b, skv, hkv, d) whose first kv_len positions are
 // valid; the g = hq / hkv query heads of a kv head share its keys.
 //
+// Two segments: a second cache k2/v2 (b, skv2, hkv, d) whose first kv_len2
+// positions follow the first cache's (the serving path's read-only context
+// and its decode tail). The kernels see one range of kv_len + kv_len2
+// keys, which the wrapper splits as one; each key row is read from the
+// segment it lies in (a compare in the copies' address, key by key, so a
+// split may straddle the two at any kv_len), and the combine of the splits
+// is the merge of the two. One segment is kv_len2 0, every address as
+// before.
+//
 // What bounds it: bytes. Every valid key and value is read once and used
 // for g dot products and g axpys: about g / 2 FLOP a byte in bf16, far
 // under the ~295 the H100 needs before the arithmetic matters. The floor
-// is 2 * kv_len * hkv * d * sizeof(T) bytes at 3.35 TB/s.
+// is 2 * (kv_len + kv_len2) * hkv * d * sizeof(T) bytes at 3.35 TB/s.
 //
 // What the design does about that:
 // - The split is the kernel's own, chosen by the wrapper from the card's
@@ -181,15 +190,16 @@ __device__ __forceinline__ void finish(float* wm, float* wl, float* wacc,
 constexpr int TC_KEYS = 64;  // keys a stage, 16 a warp
 
 // Grid: (n_split, hkv, b), clusters of (n_split, 1, 1); block kThreads;
-// g <= 16. Dynamic shared: kStages stages of K [TC_KEYS][D] and V
-// [TC_KEYS][D], T (bf16 or fp16), swizzled; after the loop the partials of
-// finish().
+// g <= 16. Keys: the first kv_len of k/v, then the first kv_len2 of k2/v2.
+// Dynamic shared: kStages stages of K [TC_KEYS][D] and V [TC_KEYS][D], T
+// (bf16 or fp16), swizzled; after the loop the partials of finish().
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int skv,
-                 int hq, int hkv, int g, int kv_len, int chunk,
-                 float scale_log2) {
+                 const T* __restrict__ v, const T* __restrict__ k2,
+                 const T* __restrict__ v2, T* __restrict__ out, int skv,
+                 int skv2, int hq, int hkv, int g, int kv_len, int kv_len2,
+                 int chunk, float scale_log2) {
   constexpr int KS = D / 16, NO = D / 8, CH = D / 8;
   constexpr int P = tile_pitch<D>();  // d = 80: 88 (mma_sm90.cuh)
   // kStages of 64 keys: 96 KB at d = 128, so two CTAs fit on an SM (at
@@ -204,18 +214,23 @@ decode_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int split = blockIdx.x, hi = blockIdx.y, bi = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t0 = split * chunk;
-  const int n = max(0, min(chunk, kv_len - t0));  // valid keys here
+  const int n = max(0, min(chunk, kv_len + kv_len2 - t0));  // keys here
   const int n_st = (n + TC_KEYS - 1) / TC_KEYS;
   const size_t row_stride = (size_t)hkv * D;
-  const T* kp = k + ((size_t)bi * skv + t0) * row_stride + (size_t)hi * D;
-  const T* vp = v + ((size_t)bi * skv + t0) * row_stride + (size_t)hi * D;
+  const T* kp = k + (size_t)bi * skv * row_stride + (size_t)hi * D;
+  const T* vp = v + (size_t)bi * skv * row_stride + (size_t)hi * D;
+  const T* kp2 = k2 + (size_t)bi * skv2 * row_stride + (size_t)hi * D;
+  const T* vp2 = v2 + (size_t)bi * skv2 * row_stride + (size_t)hi * D;
   auto load = [&](int st, int it) {  // keys it * TC_KEYS ... into stage st
     T* ks = ring + st * STAGE;
     for (int i = tid; i < TC_KEYS * CH; i += kThreads) {
       const int r = i / CH, c = i % CH, t = it * TC_KEYS + r;
-      const size_t off = t < n ? (size_t)t * row_stride + c * 8 : 0;
-      cp_async16(ks + swz<D>(r, c), kp + off, t < n);
-      cp_async16(ks + TC_KEYS * P + swz<D>(r, c), vp + off, t < n);
+      const int p = t0 + t;  // in the range of both segments
+      const bool ok = t < n, two = ok && p >= kv_len;
+      const size_t off =
+          ok ? (size_t)(two ? p - kv_len : p) * row_stride + c * 8 : 0;
+      cp_async16(ks + swz<D>(r, c), (two ? kp2 : kp) + off, ok);
+      cp_async16(ks + TC_KEYS * P + swz<D>(r, c), (two ? vp2 : vp) + off, ok);
     }
   };
 #pragma unroll
@@ -392,9 +407,10 @@ __host__ __device__ constexpr int pow2_ceil(int x) {
 template <int G, int D, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out, int skv,
-              int hq, int hkv, int g_call, int kv_len, int chunk,
-              float scale_log2) {
+              const float* __restrict__ v, const float* __restrict__ k2,
+              const float* __restrict__ v2, float* __restrict__ out, int skv,
+              int skv2, int hq, int hkv, int g_call, int kv_len, int kv_len2,
+              int chunk, float scale_log2) {
   const int g = PAD ? g_call : G;
   constexpr int VEC = 4;                        // values in a 16-byte piece
   constexpr int PCS = D / VEC;                  // pieces a key row
@@ -419,11 +435,13 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // divide PCS)
   auto live = [&](int p) { return PCS % R == 0 || c + p * R < PCS; };
   const int t0 = split * chunk;
-  const int n = max(0, min(chunk, kv_len - t0));  // valid keys here
+  const int n = max(0, min(chunk, kv_len + kv_len2 - t0));  // keys here
   const int n_it = (n + STEP * U - 1) / (STEP * U);
   const size_t row_stride = (size_t)hkv * D;
-  const float* kp = k + ((size_t)bi * skv + t0) * row_stride + (size_t)hi * D;
-  const float* vp = v + ((size_t)bi * skv + t0) * row_stride + (size_t)hi * D;
+  const float* kp = k + (size_t)bi * skv * row_stride + (size_t)hi * D;
+  const float* vp = v + (size_t)bi * skv * row_stride + (size_t)hi * D;
+  const float* kp2 = k2 + (size_t)bi * skv2 * row_stride + (size_t)hi * D;
+  const float* vp2 = v2 + (size_t)bi * skv2 * row_stride + (size_t)hi * D;
 
   // this thread's slot of piece (u, p) of K (kv 0) or V (kv 1) in a stage
   auto slot = [&](int st, int u, int p, int kv) {
@@ -434,13 +452,15 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = it * STEP * U + warp * RPW + rg + u * STEP;
+      const int key = t0 + t;  // in the range of both segments
+      const bool two = key >= kv_len;
+      const size_t row = (size_t)(two ? key - kv_len : key) * row_stride;
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
         const bool ok = t < n && live(p);
-        const size_t off = ok ? (size_t)t * row_stride + (c + p * R) * VEC
-                              : 0;
-        cp_async16(slot(st, u, p, 0), kp + off, ok);
-        cp_async16(slot(st, u, p, 1), vp + off, ok);
+        const size_t off = ok ? row + (c + p * R) * VEC : 0;
+        cp_async16(slot(st, u, p, 0), (ok && two ? kp2 : kp) + off, ok);
+        cp_async16(slot(st, u, p, 1), (ok && two ? vp2 : vp) + off, ok);
       }
     }
   };
@@ -607,8 +627,9 @@ size_t partial_bytes(int g, int d) {
 }
 
 template <typename T, int D>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
-              int skv, int hq, int hkv, int kv_len, int chunk, int n_split,
+int launch_tc(const void* q, const void* k, const void* v, const void* k2,
+              const void* v2, void* out, int b, int skv, int skv2, int hq,
+              int hkv, int kv_len, int kv_len2, int chunk, int n_split,
               float scale, cudaStream_t stream) {
   const int g = hq / hkv;
   const size_t ring =
@@ -617,34 +638,39 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
   return launch_clusters<decode_tc_kernel<T, D>>(
       ring > part ? ring : part, n_split, hkv, b, stream,
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), skv, hq, hkv, g,
-      kv_len, chunk, scale * kLog2e);
+      static_cast<const T*>(v), static_cast<const T*>(k2),
+      static_cast<const T*>(v2), static_cast<T*>(out), skv, skv2, hq, hkv, g,
+      kv_len, kv_len2, chunk, scale * kLog2e);
 }
 
 template <int G, int D, bool PAD>
-int launch_fp32(const void* q, const void* k, const void* v, void* out,
-                int b, int skv, int hq, int hkv, int kv_len, int chunk,
-                int n_split, float scale, cudaStream_t stream) {
+int launch_fp32(const void* q, const void* k, const void* v, const void* k2,
+                const void* v2, void* out, int b, int skv, int skv2, int hq,
+                int hkv, int kv_len, int kv_len2, int chunk, int n_split,
+                float scale, cudaStream_t stream) {
   const int g = hq / hkv;
   const size_t ring = (size_t)kStages * 4 * 2 * kThreads * 16;
   const size_t part = partial_bytes(g, D);
   return launch_clusters<decode_kernel<G, D, PAD>>(
       ring > part ? ring : part, n_split, hkv, b, stream,
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), skv, hq, hkv,
-      g, kv_len, chunk, scale * kLog2e);
+      static_cast<const float*>(v), static_cast<const float*>(k2),
+      static_cast<const float*>(v2), static_cast<float*>(out), skv, skv2, hq,
+      hkv, g, kv_len, kv_len2, chunk, scale * kLog2e);
 }
 
 // the fp32 kernel's groups: exact for 1-4, 8, 12 and 16 (every config's
 // g), the others on the next one up, padded
 template <int D>
 int launch_fp32_g(int g, const void* q, const void* k, const void* v,
-                  void* out, int b, int skv, int hq, int hkv, int kv_len,
+                  const void* k2, const void* v2, void* out, int b, int skv,
+                  int skv2, int hq, int hkv, int kv_len, int kv_len2,
                   int chunk, int n_split, float scale, cudaStream_t s) {
 #define DECODE_G(GG, PAD)                                                   \
   if (PAD ? g < GG : g == GG)                                              \
-    return launch_fp32<GG, D, PAD>(q, k, v, out, b, skv, hq, hkv, kv_len,  \
-                                   chunk, n_split, scale, s);
+    return launch_fp32<GG, D, PAD>(q, k, v, k2, v2, out, b, skv, skv2, hq, \
+                                   hkv, kv_len, kv_len2, chunk, n_split,   \
+                                   scale, s);
   DECODE_G(1, false) DECODE_G(2, false) DECODE_G(3, false)
   DECODE_G(4, false) DECODE_G(8, false) DECODE_G(12, false)
   DECODE_G(16, false) DECODE_G(8, true) DECODE_G(12, true)
@@ -667,16 +693,20 @@ int launch_fp32_g(int g, const void* q, const void* k, const void* v,
 // and the unnormalised fp32 O of each head) goes to the workspace ws, and
 // decode_combine_kernel merges them in a second launch on the same stream.
 // Grid: x = b * hkv * n_hc * n_split, the split fastest; y = O's
-// 256-column chunks (BIG, d past 256).
+// 256-column chunks (BIG, d past 256). Keys: the first kv_len of k/v, then
+// the first kv_len2 of k2/v2 (gen::TwoRows).
 template <class Eng, bool BIG>
 __global__ void __launch_bounds__(gen::kThreads)
 decode_generic_kernel(const typename Eng::E* __restrict__ q,
                       const typename Eng::E* __restrict__ k,
                       const typename Eng::E* __restrict__ v,
+                      const typename Eng::E* __restrict__ k2,
+                      const typename Eng::E* __restrict__ v2,
                       typename Eng::E* __restrict__ out,
-                      float* __restrict__ ws, int skv, int hq, int hkv,
-                      int d, int g, int n_hc, int kv_len, int chunk,
-                      int n_split, long long n_heads, float scale_log2) {
+                      float* __restrict__ ws, int skv, int skv2, int hq,
+                      int hkv, int d, int g, int n_hc, int kv_len,
+                      int kv_len2, int chunk, int n_split, long long n_heads,
+                      float scale_log2) {
   using E = typename Eng::E;
   extern __shared__ float4 smem4[];
   long long x = blockIdx.x;
@@ -689,9 +719,12 @@ decode_generic_kernel(const typename Eng::E* __restrict__ q,
   const int h0 = hc * Eng::kRows, R = min(Eng::kRows, g - h0);
   const size_t head0 = (size_t)bi * hq + (size_t)hi * g + h0;
   const int t0 = split * chunk;
-  const int n = max(0, min(chunk, kv_len - t0));  // valid keys here
+  const int n = max(0, min(chunk, kv_len + kv_len2 - t0));  // keys here
   const size_t stride = (size_t)hkv * d;
-  const size_t kv_off = ((size_t)bi * skv + t0) * stride + (size_t)hi * d;
+  const size_t off = (size_t)bi * skv * stride + (size_t)hi * d;
+  const size_t off2 = (size_t)bi * skv2 * stride + (size_t)hi * d;
+  const gen::TwoRows<E> krows{k + off, k2 + off2, stride, t0, kv_len};
+  const gen::TwoRows<E> vrows{v + off, v2 + off2, stride, t0, kv_len};
   const int c0 = BIG ? blockIdx.y * gen::kChunk : 0;
   gen::RangeWalk<Eng::kKeys / gen::kSegRows> walk{n, 0};
   Eng eng;
@@ -699,7 +732,7 @@ decode_generic_kernel(const typename Eng::E* __restrict__ q,
   float* wo = ws + 2 * (size_t)n_heads * n_split;
   gen::attend<Eng, BIG>(
       eng, reinterpret_cast<E*>(smem4), walk, q + head0 * d, (size_t)d, R,
-      k + kv_off, v + kv_off, stride, d, blockIdx.y, 0, 0, scale_log2,
+      krows, vrows, d, blockIdx.y, 0, 0, scale_log2,
       [&](int r, int c, float m, float l, float a) {
         const size_t h = head0 + r;
         if (n_split == 1) {
@@ -768,9 +801,10 @@ decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ out,
 }
 
 template <class Eng, bool BIG>
-int launch_generic(const void* q, const void* k, const void* v, void* out,
-                   void* ws, int b, int skv, int hq, int hkv, int d,
-                   int kv_len, int chunk, int n_split, float scale,
+int launch_generic(const void* q, const void* k, const void* v,
+                   const void* k2, const void* v2, void* out, void* ws, int b,
+                   int skv, int skv2, int hq, int hkv, int d, int kv_len,
+                   int kv_len2, int chunk, int n_split, float scale,
                    cudaStream_t stream) {
   using E = typename Eng::E;
   auto kern = decode_generic_kernel<Eng, BIG>;
@@ -789,9 +823,10 @@ int launch_generic(const void* q, const void* k, const void* v, void* out,
   dim3 grid((unsigned)ctas, gen::col_chunks(d));
   kern<<<grid, gen::kThreads, gen::smem_bytes<Eng>(d), stream>>>(
       static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<E*>(out),
-      static_cast<float*>(ws), skv, hq, hkv, d, g, n_hc, kv_len, chunk,
-      n_split, n_heads, scale * kLog2e);
+      static_cast<const E*>(v), static_cast<const E*>(k2),
+      static_cast<const E*>(v2), static_cast<E*>(out),
+      static_cast<float*>(ws), skv, skv2, hq, hkv, d, g, n_hc, kv_len,
+      kv_len2, chunk, n_split, n_heads, scale * kLog2e);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return (int)err;
   // the combine as a programmatic dependent launch: its launch overlaps
@@ -817,12 +852,14 @@ int launch_generic(const void* q, const void* k, const void* v, void* out,
 // (the groups of 16 keys a warp takes: gen::Tc's NG; BIG takes 4), with
 // three stages up to 128 columns (gen::Tc's NS; at 256, 220 KB a CTA
 // would leave no room for 64 rows of Q).
-#define DECODE_PARAMS                                                      \
-  const void *q, const void *k, const void *v, void *out, void *ws, int b, \
-      int skv, int hq, int hkv, int d, int kv_len, int chunk, int n_split, \
-      float scale, cudaStream_t s
-#define DECODE_ARGS \
-  q, k, v, out, ws, b, skv, hq, hkv, d, kv_len, chunk, n_split, scale, s
+#define DECODE_PARAMS                                                     \
+  const void *q, const void *k, const void *v, const void *k2,            \
+      const void *v2, void *out, void *ws, int b, int skv, int skv2,      \
+      int hq, int hkv, int d, int kv_len, int kv_len2, int chunk,         \
+      int n_split, float scale, cudaStream_t s
+#define DECODE_ARGS                                                    \
+  q, k, v, k2, v2, out, ws, b, skv, skv2, hq, hkv, d, kv_len, kv_len2, \
+      chunk, n_split, scale, s
 
 template <typename T>
 int launch_generic_tc(DECODE_PARAMS) {
@@ -861,22 +898,26 @@ extern "C" {
 
 // dtype: 0 fp32, 1 bf16, 2 fp16. The wrapper has checked: d in {32, 64,
 // 80, 128, 256}, hq / hkv in 1..16 (others return cudaErrorInvalidValue),
-// b and hkv under 65536, 0 <= kv_len <= skv, 16-byte aligned q/k/v, and
-// 1 <= n_split <= 16 splits of `chunk` keys that cover kv_len, none of
-// them empty unless kv_len is 0.
+// b and hkv under 65536, 0 <= kv_len <= skv, 0 <= kv_len2 <= skv2 (k2 and
+// v2 a second segment of the same heads and type, or k and v again with
+// kv_len2 0), 16-byte aligned q/k/v/k2/v2, and 1 <= n_split <= 16 splits
+// of `chunk` keys that cover kv_len + kv_len2, none of them empty unless
+// that is 0.
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            void* out, int b, int skv, int hq, int hkv,
-                            int d, int kv_len, int chunk, int n_split,
+                            const void* k2, const void* v2, void* out, int b,
+                            int skv, int skv2, int hq, int hkv, int d,
+                            int kv_len, int kv_len2, int chunk, int n_split,
                             float scale, int dtype, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (b == 0 || hq == 0) return (int)cudaGetLastError();
   const int g = hq / hkv;
-  if (n_split < 1 || n_split > kMaxCluster || chunk < 1 ||
-      (long long)chunk * n_split < kv_len || g < 1 || g > 16 ||
-      g * hkv != hq)
+  if (n_split < 1 || n_split > kMaxCluster || chunk < 1 || kv_len < 0 ||
+      kv_len2 < 0 || (long long)chunk * n_split < (long long)kv_len + kv_len2 ||
+      g < 1 || g > 16 || g * hkv != hq)
     return (int)cudaErrorInvalidValue;
-#define DECODE_ARGS \
-  q, k, v, out, b, skv, hq, hkv, kv_len, chunk, n_split, scale, s
+#define DECODE_ARGS                                                      \
+  q, k, v, k2, v2, out, b, skv, skv2, hq, hkv, kv_len, kv_len2, chunk,   \
+      n_split, scale, s
   switch (d) {
 #define DECODE_D(DD)                                        \
   case DD:                                                 \
@@ -893,21 +934,26 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
 
 // The generic kernel (decode_generic_kernel, then decode_combine_kernel
 // where n_split > 1): any d >= 1, any g = hq / hkv >= 1, dtype 0 fp32, 1
-// bf16, 2 fp16; n_split splits of `chunk` keys that cover kv_len, none of
-// them empty unless kv_len is 0, and a workspace ws of b * hq * n_split *
-// (d + 2) floats where n_split > 1 (kernel.py::workspace_floats).
+// bf16, 2 fp16; the segments as decode_attention_launch's; n_split splits
+// of `chunk` keys that cover kv_len + kv_len2, none of them empty unless
+// that is 0, and a workspace ws of b * hq * n_split * (d + 2) floats where
+// n_split > 1 (kernel.py::workspace_floats).
 int decode_attention_generic_launch(const void* q, const void* k,
-                                    const void* v, void* out, void* ws,
-                                    int b, int skv, int hq, int hkv, int d,
-                                    int kv_len, int chunk, int n_split,
-                                    float scale, int dtype, void* stream) {
+                                    const void* v, const void* k2,
+                                    const void* v2, void* out, void* ws,
+                                    int b, int skv, int skv2, int hq, int hkv,
+                                    int d, int kv_len, int kv_len2, int chunk,
+                                    int n_split, float scale, int dtype,
+                                    void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (b == 0 || hq == 0) return (int)cudaGetLastError();
-  if (n_split < 1 || chunk < 1 || (long long)chunk * n_split < kv_len ||
-      hkv < 1 || hq % hkv != 0)
+  if (n_split < 1 || chunk < 1 || kv_len < 0 || kv_len2 < 0 ||
+      (long long)chunk * n_split < (long long)kv_len + kv_len2 || hkv < 1 ||
+      hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
-#define DECODE_ARGS \
-  q, k, v, out, ws, b, skv, hq, hkv, d, kv_len, chunk, n_split, scale, s
+#define DECODE_ARGS                                                         \
+  q, k, v, k2, v2, out, ws, b, skv, skv2, hq, hkv, d, kv_len, kv_len2,      \
+      chunk, n_split, scale, s
   switch (dtype) {
     case 0: return launch_generic_fp32(DECODE_ARGS);
     case 1: return launch_generic_tc<bf16>(DECODE_ARGS);

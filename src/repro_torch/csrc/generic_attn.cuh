@@ -88,20 +88,31 @@ __device__ __forceinline__ int2 pick(const int2 (&sg)[N], int i) {
   return b;
 }
 
-// rows x cw columns of a tile of pitch P from global rows base + pos(r) *
-// stride, columns c0 .. c0 + cw - 1 of d; zeros where pos(r) < 0 and past
-// d. 16-byte cp.async pieces where `vec` (d * sizeof(E) a multiple of 16),
-// else element by element.
-template <typename E, class Pos>
-__device__ __forceinline__ void load_rows(E* dst, int P, const E* base,
-                                          size_t stride, int rows, int c0,
-                                          int cw, int d, bool vec, Pos pos) {
+// Where a stream's row p lies: base + p * stride (Q, a kv head's keys).
+template <typename E>
+struct Rows {
+  const E* base;
+  size_t stride;
+  __device__ __forceinline__ const E* row(int p) const {
+    return base + (size_t)p * stride;
+  }
+};
+
+// rows x cw columns of a tile of pitch P from the global rows
+// rows_of.row(pos(r)), columns c0 .. c0 + cw - 1 of d; zeros where pos(r) <
+// 0 and past d. 16-byte cp.async pieces where `vec` (d * sizeof(E) a
+// multiple of 16), else element by element.
+template <typename E, class Src, class Pos>
+__device__ __forceinline__ void load_rows(E* dst, int P, const Src& rows_of,
+                                          int rows, int c0, int cw, int d,
+                                          bool vec, Pos pos) {
   constexpr int EPC = 16 / sizeof(E);  // elements a 16-byte piece
+  const E* base = rows_of.row(0);
   if (vec) {
     // 8 threads a row, 16 rows a pass
     for (int r = threadIdx.x >> 3; r < rows; r += kThreads / 8) {
       const int p = pos(r);
-      const E* src = base + (p >= 0 ? (size_t)p * stride : 0);
+      const E* src = p >= 0 ? rows_of.row(p) : base;
       E* row = dst + r * P;
       for (int c = threadIdx.x & 7; c * EPC < cw; c += 8) {
         const int col = c0 + c * EPC;
@@ -113,26 +124,26 @@ __device__ __forceinline__ void load_rows(E* dst, int P, const E* base,
     for (int i = threadIdx.x; i < rows * cw; i += kThreads) {
       const int r = i / cw, c = i - r * cw;
       const int p = pos(r), col = c0 + c;
-      dst[r * P + c] = p >= 0 && col < d ? base[(size_t)p * stride + col]
+      dst[r * P + c] = p >= 0 && col < d ? rows_of.row(p)[col]
                                          : from_f32<E>(0.f);
     }
   }
 }
 
-// A sub-tile's ROWS key rows (segments sg) into a tile of pitch P, columns
+// A sub-tile's ROWS key rows (segments sg, rows of rows_of) into a tile of
+// pitch P, columns
 // c0 .. c0 + cw - 1 of d, zeros for missing rows and past d. With 16-byte
 // pieces, 8 threads a row (a warp copies 4 rows of 128 contiguous bytes at
 // a time) in ROWS / 16 passes, each thread's row in a known pair of
 // segments; otherwise element by element.
-template <int ROWS, typename E, int N>
-__device__ __forceinline__ void load_keys(E* dst, int P, const E* base,
-                                          size_t stride, int c0, int cw,
-                                          int d, bool vec,
+template <int ROWS, typename E, class Src, int N>
+__device__ __forceinline__ void load_keys(E* dst, int P, const Src& rows_of,
+                                          int c0, int cw, int d, bool vec,
                                           const int2 (&sg)[N]) {
   constexpr int EPC = 16 / sizeof(E);
   static_assert(ROWS % 16 == 0 && N == ROWS / kSegRows, "sub-tile");
   if (!vec) {
-    load_rows(dst, P, base, stride, ROWS, c0, cw, d, false, [&](int r) {
+    load_rows(dst, P, rows_of, ROWS, c0, cw, d, false, [&](int r) {
       const int2 b = pick(sg, r / kSegRows);
       const int o = r % kSegRows;
       return b.x >= 0 && o < b.y ? b.x + o : -1;
@@ -144,7 +155,8 @@ __device__ __forceinline__ void load_keys(E* dst, int P, const E* base,
   for (int pass = 0; pass < ROWS / 16; ++pass) {
     const int2 b = rr >= 8 ? sg[2 * pass + 1] : sg[2 * pass];
     const int p = b.x >= 0 && o < b.y ? b.x + o : -1;
-    const E* src = base + (p >= 0 ? (size_t)p * stride : 0);
+    const E* base = rows_of.row(0);
+    const E* src = p >= 0 ? rows_of.row(p) : base;
     E* row = dst + (pass * 16 + rr) * P;
 #pragma unroll 1
     for (int c = threadIdx.x & 7; c * EPC < cw; c += 8) {
@@ -615,6 +627,22 @@ struct ListWalk {
   }
 };
 
+// Decode's key rows: a split's row p is key t0 + p of one range, the first
+// n_a keys of a cache (a) and then those of a second (b, the decode tail),
+// each at `stride` a row. With nothing in b, the rows of Rows{a + t0 *
+// stride, stride}.
+template <typename E>
+struct TwoRows {
+  const E* a;
+  const E* b;
+  size_t stride;
+  int t0, n_a;
+  __device__ __forceinline__ const E* row(int p) const {
+    const int t = t0 + p;
+    return t < n_a ? a + (size_t)t * stride : b + (size_t)(t - n_a) * stride;
+  }
+};
+
 // Decode: keys 0 .. n - 1 of a split, in order.
 template <int N>
 struct RangeWalk {
@@ -655,23 +683,22 @@ __host__ __device__ size_t smem_bytes(int d) {
 
 // One CTA: R query rows from qbase (row stride qstride), at absolute
 // positions row0 ... (the causal mask's), against the keys `walk` gives,
-// read from kbase / vbase at kvstride a row; O's column chunk cs where BIG.
-// Hands every (row, column) of the result to out(r, c, m, l, o).
-template <class Eng, bool BIG, class Walk, class Out>
+// key row p read from krows.row(p) / vrows.row(p); O's column chunk cs
+// where BIG. Hands every (row, column) of the result to out(r, c, m, l, o).
+template <class Eng, bool BIG, class Walk, class Src, class Out>
 __device__ __forceinline__ void attend(Eng& eng, typename Eng::E* smem,
                                        Walk& walk,
                                        const typename Eng::E* qbase,
                                        size_t qstride, int R,
-                                       const typename Eng::E* kbase,
-                                       const typename Eng::E* vbase,
-                                       size_t kvstride, int d, int cs,
-                                       int causal, int row0, float sl2,
-                                       Out out) {
+                                       const Src& krows, const Src& vrows,
+                                       int d, int cs, int causal, int row0,
+                                       float sl2, Out out) {
   using E = typename Eng::E;
   constexpr int KEYS = Eng::kKeys, NSEG = KEYS / kSegRows;
   const int tid = threadIdx.x;
   const bool vec = (d * sizeof(E)) % 16 == 0;
   const int width = Eng::width(d);
+  const Rows<E> qrows{qbase, qstride};
   auto qpos = [&](int r) { return r < R ? r : -1; };
   int ncols, no;  // O's columns this CTA writes; its output tiles
   eng.init(R);
@@ -686,7 +713,7 @@ __device__ __forceinline__ void attend(Eng& eng, typename Eng::E* smem,
     int2* segs = reinterpret_cast<int2*>(qs + Eng::kRows * P);
     ncols = d;
     no = Eng::nout(cw);
-    load_rows(qs, P, qbase, qstride, Eng::q_rows(R), 0, cw, d, vec, qpos);
+    load_rows(qs, P, qrows, Eng::q_rows(R), 0, cw, d, vec, qpos);
     cp_async_commit();
     // the next sub-tile into stage st, its segments into segs; false past
     // the stream's end. Every thread walks the stream alike.
@@ -696,8 +723,8 @@ __device__ __forceinline__ void attend(Eng& eng, typename Eng::E* smem,
       if (tid < NSEG) segs[st * NSEG + tid] = pick(sg, tid);
       if (sg[0].x < 0) return false;
       E* ks = smem + st * STAGE;
-      load_keys<KEYS>(ks, P, kbase, kvstride, 0, cw, d, vec, sg);
-      load_keys<KEYS>(ks + KEYS * P, P, vbase, kvstride, 0, cw, d, vec, sg);
+      load_keys<KEYS>(ks, P, krows, 0, cw, d, vec, sg);
+      load_keys<KEYS>(ks + KEYS * P, P, vrows, 0, cw, d, vec, sg);
       return true;
     };
     bool pend[NS - 1];
@@ -745,9 +772,9 @@ __device__ __forceinline__ void attend(Eng& eng, typename Eng::E* smem,
       if (tid < NSEG) segs[tid] = pick(sg, tid);
       for (int c = 0; c < nc; ++c) {
         if (c > 0) __syncthreads();  // the previous chunk's readers are done
-        load_rows(qs, P, qbase, qstride, Eng::q_rows(R), c * kChunk, cw, d,
-                  vec, qpos);
-        load_keys<KEYS>(ks, P, kbase, kvstride, c * kChunk, cw, d, vec, sg);
+        load_rows(qs, P, qrows, Eng::q_rows(R), c * kChunk, cw, d, vec,
+                  qpos);
+        load_keys<KEYS>(ks, P, krows, c * kChunk, cw, d, vec, sg);
         cp_async_commit();
         cp_async_wait<0>();
         __syncthreads();
@@ -755,7 +782,7 @@ __device__ __forceinline__ void attend(Eng& eng, typename Eng::E* smem,
         eng.qk(qs, ks, P, Eng::ksteps(min(kChunk, width - c * kChunk)));
       }
       __syncthreads();  // K's last chunk is consumed; V takes its place
-      load_keys<KEYS>(ks, P, vbase, kvstride, c_own, cw, d, vec, sg);
+      load_keys<KEYS>(ks, P, vrows, c_own, cw, d, vec, sg);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();

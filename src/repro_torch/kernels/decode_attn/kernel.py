@@ -20,6 +20,14 @@ launch has a CTA an SM at least, and its splits' partials go to a
 workspace (``workspace_floats``) that a second kernel of the same call
 combines. ``kv_block`` only sets the plain version's blocks, since the
 split changes nothing but the order of sums.
+
+Both take an optional second key segment ``k2, v2, kv_len2`` (the serving
+path's decode tail beside its read-only context, same heads and dtype):
+the query attends over the first ``kv_len`` keys of k/v followed by the
+first ``kv_len2`` of k2/v2, one range that the split tiles as one (a split
+may straddle the two; each key is read from the segment it lies in), so
+the merge of context and tail is the kernels' own combine, in the same
+single launch.
 ``decode_attention_plain`` computes the same function with torch ops:
 per kv block of ``kv_block`` keys, the block's max, p rounded to v's
 dtype before the PV product, and the blocks' fp32 partials combined at
@@ -65,16 +73,27 @@ def reset_launches() -> None:
 # ----------------------------------------------------------------------------
 
 
-def decode_attention_plain(q, k, v, kv_len: int, *, kv_block: int = 256,
+def decode_attention_plain(q, k, v, kv_len: int, *, k2=None, v2=None,
+                           kv_len2: int = 0, kv_block: int = 256,
                            scale: float | None = None):
     """q: (b, hq, d); k/v: (b, skv, hkv, d); the first kv_len positions
-    are valid -> (b, hq, d) in q's dtype (zeros when kv_len is 0)."""
+    are valid, then (with k2/v2, (b, skv2, hkv, d)) the first kv_len2 of
+    k2/v2 -> (b, hq, d) in q's dtype (zeros when no key is valid)."""
     b, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     scale = scale if scale is not None else d ** -0.5
     if not 0 <= kv_len <= k.shape[1]:
         raise ValueError(f"kv_len {kv_len} outside [0, {k.shape[1]}]")
+    if k2 is not None:
+        if not 0 <= kv_len2 <= k2.shape[1]:
+            raise ValueError(f"kv_len2 {kv_len2} outside [0, "
+                             f"{k2.shape[1]}]")
+        k = torch.cat([k[:, :kv_len], k2[:, :kv_len2]], 1)
+        v = torch.cat([v[:, :kv_len], v2[:, :kv_len2]], 1)
+        kv_len += kv_len2
+    elif kv_len2:
+        raise ValueError("kv_len2 without a second segment k2, v2")
     n_blk = -(-kv_len // kv_block)
     if n_blk == 0:
         return torch.zeros_like(q)
@@ -166,12 +185,16 @@ def _lib():
     if _LIB is None:
         lib = _build.load("decode_attn")
         p, i = ctypes.c_void_p, ctypes.c_int
+        # q, k, v, k2, v2, out; b, skv, skv2, hq, hkv, d, kv_len,
+        # kv_len2, chunk, n_split; scale, dtype, stream
         lib.decode_attention_launch.argtypes = [
-            p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+            p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_float,
+            i, p]
         lib.decode_attention_launch.restype = i
         # the generic kernel also takes its workspace, after out
         lib.decode_attention_generic_launch.argtypes = [
-            p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+            p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+            ctypes.c_float, i, p]
         lib.decode_attention_generic_launch.restype = i
         _LIB = lib
     return _LIB
@@ -195,9 +218,18 @@ def _fast(b: int, hq: int, hkv: int, d: int, dtype) -> bool:
             and hkv <= _MAX_GRID_YZ)
 
 
-def _check(q, k, v, kv_len):
+def _check(q, k, v, kv_len, k2, v2, kv_len2):
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("q must be (b, hq, d) and k, v (b, skv, hkv, d)")
+    if (k2 is None) != (v2 is None):
+        raise ValueError("a second segment takes both k2 and v2")
+    if k2 is None and kv_len2:
+        raise ValueError("kv_len2 without a second segment k2, v2")
+    if k2 is not None and (k2.dim() != 4 or k2.shape != v2.shape
+                           or k2.shape[0] != k.shape[0]
+                           or k2.shape[2:] != k.shape[2:]):
+        raise ValueError(f"k2, v2 {tuple(k2.shape)} must be (b, skv2, hkv, "
+                         f"d) of k's {tuple(k.shape)}")
     b, hq, d = q.shape
     kb, skv, hkv, dk = k.shape
     if kb != b or dk != d:
@@ -211,54 +243,63 @@ def _check(q, k, v, kv_len):
     if not 1 <= d <= _GENERIC_MAX_D:
         raise ValueError(f"head size {d}: the kernels take 1 to "
                          f"{_GENERIC_MAX_D}, the generic kernel's limit")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
+    segs = (k, v) if k2 is None else (k, v, k2, v2)
+    if any(t.dtype != q.dtype for t in segs):
         raise ValueError(f"q, k, v must share one dtype of {_DTYPES}")
     if not 0 <= kv_len <= skv:
         raise ValueError(f"kv_len {kv_len} outside [0, {skv}]")
+    if k2 is not None and not 0 <= kv_len2 <= k2.shape[1]:
+        raise ValueError(f"kv_len2 {kv_len2} outside [0, {k2.shape[1]}]")
     if q.device.type != "cuda":
         raise ValueError(f"kernel needs CUDA tensors, got {q.device}")
-    for t in (q, k, v):
+    for t in (q, *segs):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("all inputs must be contiguous on one device")
         if t.data_ptr() % 16:
             raise ValueError("q, k, v must be 16-byte aligned")
 
 
-def decode_attention(q, k, v, kv_len: int, *, kv_block: int = 256,
+def decode_attention(q, k, v, kv_len: int, *, k2=None, v2=None,
+                     kv_len2: int = 0, kv_block: int = 256,
                      scale: float | None = None):
     """Launch a CUDA kernel: same contract as
-    ``decode_attention_plain``. The fast kernels take the shapes they were
-    built for (``_fast``), the generic kernel the rest. ``kv_block`` must
-    be positive; the kernels' split is ``split_plan``'s (fast) or
+    ``decode_attention_plain``, the second segment included. The fast
+    kernels take the shapes they were built for (``_fast``), the generic
+    kernel the rest. ``kv_block`` must be positive; the kernels' split of
+    ``kv_len + kv_len2`` keys is ``split_plan``'s (fast) or
     ``split_plan_generic``'s, which changes only the order of sums."""
-    kv_len = int(kv_len)
+    kv_len, kv_len2 = int(kv_len), int(kv_len2)
     if kv_block <= 0:
         raise ValueError(f"kv_block {kv_block} must be positive")
-    _check(q, k, v, kv_len)
+    _check(q, k, v, kv_len, k2, v2, kv_len2)
+    if k2 is None:       # no second segment: the first again, none of it
+        k2, v2 = k, v
     b, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, skv2 = k.shape[1], k.shape[2], k2.shape[1]
+    n_keys = kv_len + kv_len2
     lib = _lib()
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     n_sm = _sm_count(q.device)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), k2.data_ptr(),
+            v2.data_ptr(), out.data_ptr())
     if _fast(b, hq, hkv, d, q.dtype):
         name = "decode_attention"
-        chunk, n_split = split_plan(b, hkv, kv_len, n_sm)
+        chunk, n_split = split_plan(b, hkv, n_keys, n_sm)
         err = lib.decode_attention_launch(
-            *ptrs, b, skv, hq, hkv, d, kv_len, chunk, n_split, float(scale),
-            _DTYPE_CODE[q.dtype], stream)
+            *ptrs, b, skv, skv2, hq, hkv, d, kv_len, kv_len2, chunk,
+            n_split, float(scale), _DTYPE_CODE[q.dtype], stream)
     else:
         name = "decode_attention_generic"
         chunk, n_split = split_plan_generic(
-            b * hkv * head_chunks(hq // hkv, q.dtype), kv_len, n_sm)
+            b * hkv * head_chunks(hq // hkv, q.dtype), n_keys, n_sm)
         n_ws = workspace_floats(b, hq, d, n_split)
         ws = (torch.empty(n_ws, dtype=torch.float32, device=q.device)
               if n_ws else None)
         err = lib.decode_attention_generic_launch(
-            *ptrs, ws.data_ptr() if ws is not None else None, b, skv, hq,
-            hkv, d, kv_len, chunk, n_split, float(scale),
+            *ptrs, ws.data_ptr() if ws is not None else None, b, skv, skv2,
+            hq, hkv, d, kv_len, kv_len2, chunk, n_split, float(scale),
             _DTYPE_CODE[q.dtype], stream)
     LAUNCHES[name] += 1
     if err:

@@ -17,6 +17,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import constrain
+from repro_torch.kernels.decode_attn import ops as DO
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamDef
 from repro_torch.spans import span
@@ -24,6 +25,11 @@ from repro_torch.spans import span
 # capacity of the decode tail buffer (newly generated tokens); the
 # context cache stays read-only, as in the reference
 DECODE_TAIL = 128
+
+# decode attentions that took the eager path (flash_attention over the
+# context and the tail, then merge_attention); the kernel's launches are
+# kernels.decode_attn.kernel.LAUNCHES
+EAGER_CALLS = {"decode_attention": 0}
 
 
 def param_defs(cfg) -> dict:
@@ -84,6 +90,14 @@ def _remat(cfg, fn):
     return run
 
 
+def _kernel_path(q, ctx_k, tail_k) -> bool:
+    """Whether decode attention takes the flash-decode kernel: CUDA
+    tensors that are not DTensors. The kernel's launcher refuses, with an
+    error, a dtype or head shape it cannot take."""
+    return q.device.type == "cuda" and not any(
+        spmd.is_dtensor(t) for t in (q, ctx_k, tail_k))
+
+
 def decode_attention(cfg, bp_attn, q, k, v, ctx_k, ctx_v, tail_k, tail_v,
                      tail_pos: int, scale=None):
     """Attend a single new token over [static context] + [tail buffer],
@@ -95,7 +109,17 @@ def decode_attention(cfg, bp_attn, q, k, v, ctx_k, ctx_v, tail_k, tail_v,
     rank's own block of a DTensor tail. Past the buffer, as the
     reference's ``dynamic_update_slice`` clamps, it is written into the
     last slot, and every slot is attended (kv_len tail_pos + 1 covers
-    them all). A negative tail_pos raises. Returns (o, tail_k, tail_v)."""
+    them all). A negative tail_pos raises. Returns (o, tail_k, tail_v).
+
+    On the card (CUDA tensors that are not DTensors) the token attends
+    over the context and the tail's first tail_pos + 1 slots as two key
+    segments of one flash-decode launch
+    (``kernels.decode_attn.ops.decode_attention``; scores and softmax in
+    fp32, p rounded to v's dtype before P V), neither copied; a dtype or
+    head shape the kernels cannot take raises there. Elsewhere
+    (the CPU, DTensors) it runs the reference's eager path: flash
+    attention over the context, then over the tail, merged; counted in
+    ``EAGER_CALLS``."""
     if tail_pos < 0:
         raise ValueError(f"decode position {tail_pos} is before the tail "
                          "buffer")
@@ -103,6 +127,15 @@ def decode_attention(cfg, bp_attn, q, k, v, ctx_k, ctx_v, tail_k, tail_v,
     with span("decode.step.attention"):
         spmd.write(tail_k, slot, k[:, 0])
         spmd.write(tail_v, slot, v[:, 0])
+        if _kernel_path(q, ctx_k, tail_k):
+            # one token's q, dense for the kernel (a copy only where the
+            # projection left another layout)
+            o = DO.decode_attention(
+                q[:, 0].contiguous(), ctx_k, ctx_v, ctx_k.shape[1],
+                k2=tail_k, v2=tail_v,
+                kv_len2=min(tail_pos + 1, tail_k.shape[1]), scale=scale)
+            return o[:, None], tail_k, tail_v
+        EAGER_CALLS["decode_attention"] += 1
         p1 = L.flash_attention(q, ctx_k, ctx_v, causal=False,
                                kv_chunk=max(cfg.attn_chunk, 2048),
                                scale=scale, return_stats=True)

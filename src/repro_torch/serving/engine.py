@@ -61,8 +61,10 @@ from repro_torch.core.costs import NETWORKS, PROFILES
 from repro_torch.core.predictor import LatencyPredictor
 from repro_torch.data.workloads import WorkloadChunks
 from repro_torch.device import resolve
+from repro_torch.kernels.decode_attn import kernel as decode_kernel
 from repro_torch.kernels.huffman_decode.ops import decode as huffman_decode
 from repro_torch.kernels.kv_dequant.ops import dequantize_into
+from repro_torch.models import transformer
 from repro_torch.models.api import Model
 from repro_torch.spans import span
 
@@ -95,6 +97,10 @@ class ServeResult:
     migrations: int
     wall_s: float
     state_bytes: int = 0               # recurrent state restored (rest)
+    # the request's decode attentions (``_decode``, not the exact-cache
+    # comparison): flash-decode kernel launches, eager-path calls
+    attn_kernel_calls: int = 0
+    attn_eager_calls: int = 0
 
 
 class SparKVServer:
@@ -307,7 +313,10 @@ class SparKVServer:
             with span("generate", into=self.phase_s):
                 st = self.contexts[cid]
                 cache, res = self.load_context(cid, policy=policy, seed=seed)
+                calls0 = _attn_calls()
                 toks, logits_seq = self._decode(st, cache, prompt, max_new)
+                n_kernel, n_eager = (a - b for a, b in zip(_attn_calls(),
+                                                           calls0))
                 if compare_exact:
                     exact_cache = {"k": st.exact_k.to(torch.bfloat16),
                                    "v": st.exact_v.to(torch.bfloat16),
@@ -325,7 +334,8 @@ class SparKVServer:
                 top1_agreement=agree, mean_kl=kl,
                 n_streamed=eng.n_streamed, n_computed=eng.n_computed,
                 migrations=getattr(eng, "n_migrations", 0),
-                wall_s=time.time() - t_wall, state_bytes=st.rest_bytes())
+                wall_s=time.time() - t_wall, state_bytes=st.rest_bytes(),
+                attn_kernel_calls=n_kernel, attn_eager_calls=n_eager)
         finally:
             self.active_requests -= 1
 
@@ -403,6 +413,12 @@ class SparKVServer:
                 out_toks = torch.cat(toks[n:]).cpu().numpy()
                 out_logits = [lf.cpu().numpy() for lf in logits_list[n:]]
         return out_toks, out_logits
+
+
+def _attn_calls() -> tuple[int, int]:
+    """(flash-decode kernel launches, eager decode attentions) so far."""
+    return (sum(decode_kernel.LAUNCHES.values()),
+            transformer.EAGER_CALLS["decode_attention"])
 
 
 def _kl(p_logits: np.ndarray, q_logits: np.ndarray) -> float:

@@ -716,6 +716,122 @@ def test_ops_copy_other_layouts_and_count_it(cuda):
     assert torch.equal(out, ref)
 
 
+# Two key segments (the serving path's context and decode tail): the cells'
+# heads (Qwen3-4B 32/8x128, Granite-3.0 24/8x64, Granite-4.0-H 32/8x128 at
+# its attention_multiplier), their context lengths (HotpotQA 11,264,
+# GovReport 13,312) and lengths that are not a multiple of 64, tails of 1,
+# 57 and 128 slots
+SEG_HEADS = [(32, 8, 128, None), (24, 8, 64, None), (32, 8, 128, 0.0078125)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("kv_len2", [1, 57, 128])
+@pytest.mark.parametrize("ctx", [11_264, 13_312, 1000, 61])
+@pytest.mark.parametrize("hq,hkv,d,scale", SEG_HEADS)
+def test_decode_two_segments_match_plain(cuda, hq, hkv, d, scale, ctx,
+                                         kv_len2, dtype):
+    """The fast kernels (bf16 and fp16 on the tensor cores, fp32 on the
+    CUDA cores) over a context and a 128-slot tail as two segments, one
+    launch a call, against the plain version; tail slots past kv_len2
+    hold values that must not count."""
+    gen = torch.Generator(device=cuda).manual_seed(ctx + kv_len2 + d)
+    q = _randn(gen, (1, hq, d), dtype, cuda)
+    ck, cv = (_randn(gen, (1, ctx, hkv, d), dtype, cuda) for _ in range(2))
+    tk, tv = (_randn(gen, (1, 128, hkv, d), dtype, cuda) for _ in range(2))
+    out, n = _launched(DK.LAUNCHES, lambda: DK.decode_attention(
+        q, ck, cv, ctx, k2=tk, v2=tv, kv_len2=kv_len2, scale=scale))
+    assert n == {"decode_attention": 1}
+    plain = DK.decode_attention_plain(q, ck, cv, ctx, k2=tk, v2=tv,
+                                      kv_len2=kv_len2, scale=scale)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and _close(out, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("d,g", GENERIC_DEC)
+def test_decode_generic_two_segments_match_plain(cuda, d, g, dtype):
+    """The generic kernel over two segments, one split (300 + 1 keys) and
+    many (5000 + 128, 999 + 57), one launch a call (its combine is part of
+    the call), against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(d * g)
+    q = _randn(gen, (2, 2 * g, d), dtype, cuda)
+    k, v = (_randn(gen, (2, 5000, 2, d), dtype, cuda) for _ in range(2))
+    k2, v2 = (_randn(gen, (2, 128, 2, d), dtype, cuda) for _ in range(2))
+    for kv_len, kv_len2 in ((300, 1), (5000, 128), (999, 57), (0, 5)):
+        out, n = _launched(DK.LAUNCHES, lambda: DK.decode_attention(
+            q, k, v, kv_len, k2=k2, v2=v2, kv_len2=kv_len2))
+        assert n == {"decode_attention_generic": 1}
+        plain = DK.decode_attention_plain(q, k, v, kv_len, k2=k2, v2=v2,
+                                          kv_len2=kv_len2)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and _close(out, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("hq,hkv,d,cut", [
+    (32, 8, 128, 1000), (24, 8, 64, 11_263), (32, 8, 128, 64),
+    (40, 2, 96, 777), (40, 2, 96, 4096)])
+def test_decode_one_cache_cut_in_two_is_bit_equal(cuda, hq, hkv, d, cut,
+                                                  dtype):
+    """A cache cut into two segments at any key (a multiple of 64 or not)
+    gives the split the same keys in the same order: bit-equal to the
+    one-segment call, fast and generic kernels; a second segment of no
+    keys is bit-equal too."""
+    gen = torch.Generator(device=cuda).manual_seed(cut + d)
+    skv = 12_000
+    q = _randn(gen, (1, hq, d), dtype, cuda)
+    k, v = (_randn(gen, (1, skv, hkv, d), dtype, cuda) for _ in range(2))
+    one = DK.decode_attention(q, k, v, skv)
+    two = DK.decode_attention(q, k[:, :cut], v[:, :cut], cut, k2=k[:, cut:],
+                              v2=v[:, cut:], kv_len2=skv - cut)
+    none = DK.decode_attention(q, k, v, skv, k2=k[:, :8], v2=v[:, :8],
+                               kv_len2=0)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two) and torch.equal(one, none)
+
+
+def _served(cfg, cuda, *, eager=False, monkeypatch=None):
+    """A context registered on a card server and one local_prefill request
+    (4 prompt tokens, 8 new), with the decode attention's eager path
+    forced where `eager`."""
+    from repro_torch.models import transformer as T
+    spcfg = SparKVConfig(chunk_tokens=32, q_block=16, kv_block=16,
+                         quant_group=32)
+    model = build_model(cfg)
+    srv = SparKVServer(model, model.init(0, device=cuda), spcfg,
+                       chunk_tokens=32, device=cuda)
+    cid = srv.register_context(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, 96)))
+    if eager:
+        monkeypatch.setattr(T, "_kernel_path", lambda *a: False)
+    c0 = DO.COPIES["decode_attention"]
+    res = srv.generate(cid, np.arange(4), max_new=8, policy="local_prefill",
+                       compare_exact=False)
+    assert DO.COPIES["decode_attention"] == c0
+    return res
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("sparkv-qwen3-4b", dict(d_model=512, heads=8, kv_heads=2)),
+    ("granite-moe-3b-a800m", dict(d_model=384, heads=6, kv_heads=2))])
+def test_served_decode_attends_through_the_kernel(cuda, arch, kw,
+                                                  monkeypatch):
+    """A card server's decode attends through the flash-decode kernel: one
+    fast-kernel launch a layer a step (attn_kernel_calls = steps x
+    layers, no eager call), no copy of the cache's context or tail on the
+    way (COPIES), and the tokens the eager path decodes."""
+    cfg = get_smoke(arch, layers=2, d_ff=128, vocab=256, **kw)
+    g0 = DK.LAUNCHES["decode_attention_generic"]
+    res = _served(cfg, cuda)
+    assert DK.LAUNCHES["decode_attention_generic"] == g0
+    assert res.attn_kernel_calls == (4 + 8) * cfg.num_layers
+    assert res.attn_eager_calls == 0
+    eager = _served(cfg, cuda, eager=True, monkeypatch=monkeypatch)
+    assert eager.attn_kernel_calls == 0
+    assert eager.attn_eager_calls == (4 + 8) * cfg.num_layers
+    assert np.array_equal(res.tokens, eager.tokens)
+
+
 def test_grids_past_65535(cuda):
     """bh past 65535 in block-sparse (fp32 on the flattened grid of the
     fast kernel, bf16 on gridDim.x) and b past 65535 in decode (the
@@ -1046,15 +1162,20 @@ def test_jit_train_step_on_one_rank_nccl_mesh(cuda):
 
 
 @pytest.mark.parametrize("arch", ["sparkv-qwen3-4b", "mamba2-130m"])
-def test_prefill_and_decode_on_one_rank_nccl_mesh(cuda, arch):
+def test_prefill_and_decode_on_one_rank_nccl_mesh(cuda, arch, monkeypatch):
     """chip_smoke's path P at smoke size: a prefill and 4 decode steps
     over DTensors on a (1, 1) mesh of a one-rank NCCL group (the dry
     run's prefill and weight-stationary rules) against the plain port on
     the card, from the same fp32 params and tokens: logits and caches
-    within 1e-6 (a one-device mesh runs the same kernels)."""
+    within 1e-6 of the plain port with its decode attention on the eager
+    path that DTensors take (a one-device mesh runs the same kernels),
+    and the decode logits within 1e-5 of the largest logit (1 at least)
+    of the plain port as the card runs it, through the flash-decode
+    kernel."""
     import torch.distributed as dist
     from repro_torch.distributed.sharding import make_rules
     from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as T
     from repro_torch.models.api import lay_out
     from repro_torch.training.trainer import partitioned, shard_tree
     from repro_torch.tree import leaves, tree_map
@@ -1084,6 +1205,8 @@ def test_prefill_and_decode_on_one_rank_nccl_mesh(cuda, arch):
                 out.append(lg)
         return out + leaves(pre) + leaves(cache)
 
+    kernel = serve(params)
+    monkeypatch.setattr(T, "_kernel_path", lambda *a: False)
     want = serve(params)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1,
@@ -1099,5 +1222,14 @@ def test_prefill_and_decode_on_one_rank_nccl_mesh(cuda, arch):
             a = a.to_local()
             assert a.device.type == "cuda"
             assert float((a.float() - b.float()).abs().max()) <= 1e-6
+        # the kernel sums the fp32 scores and P V in another order than
+        # the eager path's chunks and merge (fp32 throughout, so no score
+        # or p is rounded to a narrower type): each attention output moves
+        # by at most about n_keys x 2^-24 of its scale (44 keys: 2.6e-6),
+        # which the smoke model's normed layers carry to the logits at that
+        # relative size; 1e-5 leaves about 4x on that sum
+        for a, b in zip(got[1:1 + len(toks)], kernel[1:1 + len(toks)]):
+            bound = 1e-5 * max(float(b.abs().max()), 1.0)
+            assert float((a.to_local() - b).abs().max()) <= bound
     finally:
         dist.destroy_process_group()

@@ -22,8 +22,11 @@ from repro_torch.kernels.decode_attn import kernel as TK  # noqa: E402
 from repro_torch.kernels.decode_attn import ops as TO  # noqa: E402
 from repro_torch.kernels.decode_attn import ref as TR  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.distributed import spmd  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serving.engine import SparKVServer  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -208,3 +211,185 @@ def test_plain_at_the_kernels_split_matches_pallas(b, hq, hkv, skv, d, klen,
     jout = JK.decode_attention(jq, jk, jv, klen, kv_block=blk,
                                interpret=True)
     _close(jout, tout, atol)
+
+
+# ----------------------------------------------------------------------------
+# Two key segments: the read-only context and the decode tail in one call
+# ----------------------------------------------------------------------------
+
+# (hq, hkv, d, scale) scaled down from the cells' attention: Qwen3-4B's
+# 32/8x128 (group 4), Granite-3.0's 24/8x64 (group 3), Granite-4.0-H's
+# 32/8x128 at its attention_multiplier
+SEG_HEADS = [(8, 2, 128, None), (6, 2, 64, None), (8, 2, 128, 0.0078125)]
+# context lengths that are a multiple of 64 and are not; tail lengths 1,
+# mid and the whole 128-slot tail
+SEG_CTX = [1024, 1000, 61]
+SEG_TAIL = [1, 57, 128]
+
+
+def _eager_two_segments(q, ck, cv, tk, tv, kv_len2, scale):
+    """The serving path's eager decode attention: flash attention over the
+    context, then over the tail's first kv_len2 slots, merged."""
+    p1 = TL.flash_attention(q[:, None], ck, cv, causal=False,
+                            kv_chunk=2048, scale=scale, return_stats=True)
+    p2 = TL.flash_attention(q[:, None], tk, tv, causal=False,
+                            kv_len=kv_len2, kv_chunk=128, scale=scale,
+                            return_stats=True)
+    return TL.merge_attention([p1, p2])[:, 0]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kv_len2", SEG_TAIL)
+@pytest.mark.parametrize("ctx", SEG_CTX)
+@pytest.mark.parametrize("hq,hkv,d,scale", SEG_HEADS)
+def test_two_segments_match_eager_merge(hq, hkv, d, scale, ctx, kv_len2,
+                                        dtype):
+    """The plain version over (context, tail) as two segments against the
+    eager flash attention over each and merge_attention, to rounding (the
+    eager path rounds bf16 scores to bf16; the plain version keeps fp32),
+    and against the plain version over the two concatenated. Slots of the
+    tail past kv_len2 hold values that must not count."""
+    atol = DTYPES[dtype][2]
+    gen = torch.Generator().manual_seed(ctx * 131 + kv_len2 + d)
+    tdt = DTYPES[dtype][1]
+    q = torch.randn((2, hq, d), generator=gen).to(tdt)
+    ck, cv = (torch.randn((2, ctx, hkv, d), generator=gen).to(tdt)
+              for _ in range(2))
+    tk, tv = (torch.randn((2, 128, hkv, d), generator=gen).to(tdt)
+              for _ in range(2))
+    out = TO.decode_attention(q, ck, cv, ctx, k2=tk, v2=tv, kv_len2=kv_len2,
+                              scale=scale)
+    assert out.dtype == tdt and out.shape == q.shape
+    eager = _eager_two_segments(q, ck, cv, tk, tv, kv_len2, scale)
+    np.testing.assert_allclose(out.float().numpy(), eager.float().numpy(),
+                               atol=atol, rtol=0)
+    cat = TK.decode_attention_plain(
+        q, torch.cat([ck, tk[:, :kv_len2]], 1),
+        torch.cat([cv, tv[:, :kv_len2]], 1), ctx + kv_len2, scale=scale)
+    assert torch.equal(out, cat)
+
+
+def test_second_segment_refusals():
+    """A second segment needs both k2 and v2 and a kv_len2 inside it; a
+    kv_len2 without one raises; one-segment calls are unchanged."""
+    _, (tq, tk, tv) = _inputs(5, 1, 4, 2, 300, 64, "float32")
+    with pytest.raises(ValueError):
+        TK.decode_attention_plain(tq, tk, tv, 250, kv_len2=3)
+    with pytest.raises(ValueError):
+        TK.decode_attention_plain(tq, tk, tv, 250, k2=tk[:, :10],
+                                  v2=tv[:, :10], kv_len2=11)
+    assert torch.equal(
+        TK.decode_attention_plain(tq, tk, tv, 250, k2=tk[:, :10],
+                                  v2=tv[:, :10], kv_len2=0),
+        TK.decode_attention_plain(tq, tk, tv, 250))
+
+
+def _old_decode_attention(cfg, bp_attn, q, k, v, ctx_k, ctx_v, tail_k,
+                          tail_v, tail_pos, scale=None):
+    """transformer.decode_attention as it was before the kernel route: the
+    eager path, for the decode step's bit-equality on the CPU."""
+    slot = min(tail_pos, tail_k.shape[1] - 1)
+    spmd.write(tail_k, slot, k[:, 0])
+    spmd.write(tail_v, slot, v[:, 0])
+    p1 = TL.flash_attention(q, ctx_k, ctx_v, causal=False,
+                            kv_chunk=max(cfg.attn_chunk, 2048), scale=scale,
+                            return_stats=True)
+    p2 = TL.flash_attention(q, tail_k, tail_v, causal=False,
+                            kv_len=tail_pos + 1, kv_chunk=TT.DECODE_TAIL,
+                            scale=scale, return_stats=True)
+    return TL.merge_attention([p1, p2]), tail_k, tail_v
+
+
+# (arch, attention layers a step): dense, MoE, and the hybrid's shared
+# block (models/hybrid.py) applied every attn_every layers
+STEP_ARCHS = [("sparkv-qwen3-4b", 2), ("granite-moe-3b-a800m", 2),
+              ("zamba2-2.7b", None)]
+
+
+def _decoded(model, params, steps, ctx_len=40):
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, model.cfg.vocab_size,
+                                          size=(1, ctx_len)))
+    _, pre = model.prefill(params, {"tokens": tokens})
+    cache = model.decode_cache(pre)
+    out = []
+    for i, t in enumerate(rng.integers(0, model.cfg.vocab_size,
+                                       size=steps)):
+        lg, cache = model.decode_step(params, cache, torch.tensor([int(t)]),
+                                      ctx_len + i)
+        out.append(lg)
+    return out, cache
+
+
+@pytest.mark.parametrize("arch,n_attn", STEP_ARCHS)
+def test_decode_step_on_cpu_unchanged_and_counted(arch, n_attn, monkeypatch):
+    """On the CPU the decode step keeps the eager path: its logits and
+    caches bit-equal to the step before the kernel route (tail positions
+    0 .. 130, past the 128-slot tail where the write clamps), and
+    EAGER_CALLS counts one call a layer a step, no kernel launch."""
+    cfg = get_smoke(arch, layers=2 if n_attn else 4, d_model=64, heads=4,
+                    d_ff=128, vocab=256)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    steps = 131
+    if n_attn is None:
+        n_attn = cfg.num_layers // cfg.attn_every
+    e0, l0 = TT.EAGER_CALLS["decode_attention"], dict(TK.LAUNCHES)
+    got, got_cache = _decoded(model, params, steps)
+    assert TT.EAGER_CALLS["decode_attention"] - e0 == steps * n_attn
+    assert TK.LAUNCHES == l0
+    monkeypatch.setattr(TT, "decode_attention", _old_decode_attention)
+    want, want_cache = _decoded(model, params, steps)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got_leaves, want_leaves = leaves(got_cache), leaves(want_cache)
+    assert len(got_leaves) == len(want_leaves)
+    assert all(torch.equal(a, b) for a, b in zip(got_leaves, want_leaves))
+
+
+@pytest.mark.parametrize("tail_pos", [0, 56, 127, 131])
+def test_kernel_route_on_cpu_matches_eager(tail_pos, monkeypatch):
+    """The kernel route's call (context and tail as two segments, kv_len2
+    clamped to the tail) through the ops layer, which takes the plain
+    version on the CPU, against the eager path at the same position: the
+    same tail writes (the clamped slot past the tail too), outputs to
+    rounding, and no eager call counted on the route."""
+    cfg = get_smoke("sparkv-qwen3-4b", layers=1, d_model=64, heads=4,
+                    d_ff=128, vocab=256)
+    gen = torch.Generator().manual_seed(tail_pos)
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = (torch.randn((1, 1, h, d), generator=gen).to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    ck, cv = (torch.randn((1, 200, hkv, d), generator=gen)
+              .to(torch.bfloat16) for _ in range(2))
+    tails = [torch.randn((1, 128, hkv, d), generator=gen).to(torch.bfloat16)
+             for _ in range(2)]
+    eager_tails = [t.clone() for t in tails]
+    want, _, _ = TT.decode_attention(cfg, None, q, k, v, ck, cv,
+                                     *eager_tails, tail_pos)
+    monkeypatch.setattr(TT, "_kernel_path", lambda *a: True)
+    e0 = TT.EAGER_CALLS["decode_attention"]
+    got, tk, tv = TT.decode_attention(cfg, None, q, k, v, ck, cv, *tails,
+                                      tail_pos)
+    assert TT.EAGER_CALLS["decode_attention"] == e0
+    assert got.shape == want.shape == (1, 1, hq, d)
+    assert torch.equal(tk, eager_tails[0]) and torch.equal(tv, eager_tails[1])
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["sparkv-qwen3-4b", "granite-moe-3b-a800m"])
+def test_served_request_counts_its_decode_attentions(arch):
+    """ServeResult's counters on a CPU server: one eager call a layer a
+    step of the request's decode (prompt + new tokens), none for the
+    exact-cache comparison, and no kernel launch."""
+    cfg = get_smoke(arch, layers=2, d_model=64, heads=4, d_ff=128, vocab=256)
+    model = build_model(cfg)
+    srv = SparKVServer(model, model.init(0, device="cpu"),
+                       SparKVConfig(chunk_tokens=32, q_block=16, kv_block=16,
+                                    quant_group=32),
+                       chunk_tokens=32, device="cpu")
+    cid = srv.register_context(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, 64)))
+    res = srv.generate(cid, np.arange(5), max_new=6, policy="local_prefill")
+    assert res.attn_eager_calls == (5 + 6) * cfg.num_layers
+    assert res.attn_kernel_calls == 0

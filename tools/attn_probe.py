@@ -132,7 +132,7 @@ int bsa(const void* q, const void* k, const void* v, const void* idx, const void
   return B::launch_generic<{ENG_B}, false>(q, k, v, idx, cnt, o, bh, sq, skv, d, n_qb, max_nnz, q_block, kv_block, kv_group, causal, scale, (cudaStream_t)s);
 }}
 int dec(const void* q, const void* k, const void* v, void* out, void* ws, int b, int skv, int hq, int hkv, int d, int kv_len, int chunk, int n_split, float scale, void* s) {{
-  return D::launch_generic<{ENG_D}, false>(q, k, v, out, ws, b, skv, hq, hkv, d, kv_len, chunk, n_split, scale, (cudaStream_t)s);
+  return D::launch_generic<{ENG_D}, false>(q, k, v, k, v, out, ws, b, skv, skv, hq, hkv, d, kv_len, 0, chunk, n_split, scale, (cudaStream_t)s);
 }}
 }}
 '''
