@@ -32,8 +32,9 @@ Phases, in order; any failure exits non-zero:
      chunk and dequantized in exactly one kv_dequant launch, and its
      cache within two quantization steps of the exact one; each
      request's decode attends through the flash-decode kernel, one fast
-     launch a layer a step (ServeResult.attn_kernel_calls = steps x
-     layers, attn_eager_calls 0), as in paths B, F and O;
+     launch a layer a step (decode_attn's LAUNCHES around generate = steps
+     x layers, with the exact-cache comparison's decode twice that;
+     transformer.EAGER_CALLS unchanged), as in paths B, F and O;
      then the dequant of every stored chunk timed on the host clock two
      ways in turns: the per-chunk route (a launch per chunk tensor, plus
      a slice copy) and the one staged launch;
@@ -1598,26 +1599,25 @@ def o_request(srv, seen, cid, device, count, *, seed=0, max_new=130):
     from repro_torch.kernels.decode_attn import kernel as DK
     from repro_torch.kernels.kv_dequant import kernel as K
     from repro_torch.kernels.kv_dequant import ops as KO
-    from repro_torch.models.transformer import DECODE_TAIL
+    from repro_torch.models.transformer import DECODE_TAIL, EAGER_CALLS
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
     st = srv.contexts[cid]
     prompt = rng.integers(0, srv.model.cfg.vocab_size, size=4)
     K.reset_launches()
     seen.clear()
-    attn0 = dict(DK.LAUNCHES)
+    attn0, eager0 = dict(DK.LAUNCHES), EAGER_CALLS["decode_attention"]
     with NoPlain():
         res = srv.generate(cid, prompt, max_new=max_new, policy="sparkv",
                            compare_exact=False, seed=1)
         torch.cuda.synchronize()
     attn = {k: DK.LAUNCHES[k] - attn0[k] for k in DK.LAUNCHES}
+    eager = EAGER_CALLS["decode_attention"] - eager0
     n_attn = (len(prompt) + max_new) * srv.model.cfg.num_layers
-    check(res.attn_kernel_calls == attn["decode_attention"] == n_attn
-          and res.attn_eager_calls == 0
+    check(attn["decode_attention"] == n_attn and eager == 0
           and attn["decode_attention_generic"] == 0,
-          f"path O request: decode attention {res.attn_kernel_calls} "
-          f"kernel, {res.attn_eager_calls} eager calls, launches {attn}, "
-          f"not {n_attn} fast launches")
+          f"path O request: decode attention launches {attn}, {eager} "
+          f"eager calls, not {n_attn} fast launches")
     count("decode_attention", n_attn)
     want = 1 if res.n_streamed else 0
     check(dict(K.LAUNCHES) == {"kv_dequant": want, "kv_dequant_mixed": 0},
@@ -1759,13 +1759,15 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
     (policy, result, the dequant kernels' launches during the request,
     the streamed chunks' widths, the decode-attention launches during
     the request). Each request's decode attends through the flash-decode
-    kernel, one fast launch a layer a step (``attn_kernel_calls``) and no
-    eager call. `keep`, a dict, receives the server's params and the
-    cache of the first request that streamed chunks."""
+    kernel, one fast launch a layer a step (decode_attn's ``LAUNCHES``;
+    the exact-cache comparison decodes as many again) and no eager call
+    (``transformer.EAGER_CALLS``). `keep`, a dict, receives the server's
+    params and the cache of the first request that streamed chunks."""
     from repro_torch.device import sync
     from repro_torch.kernels.decode_attn import kernel as DK
     from repro_torch.kernels.huffman_decode import kernel as HK
     from repro_torch.kernels.kv_dequant import kernel as K
+    from repro_torch.models.transformer import EAGER_CALLS
 
     rng = np.random.default_rng(seed)
     srv, seen = build_server(cfg, spcfg, device, seed)
@@ -1792,7 +1794,7 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
     for policy in policies:
         before = dict(K.LAUNCHES)
         decoded = HK.LAUNCHES["huffman_decode"]
-        attn0 = dict(DK.LAUNCHES)
+        attn0, eager0 = dict(DK.LAUNCHES), EAGER_CALLS["decode_attention"]
         phases = dict(srv.phase_s)
         seen.clear()
         prompt = rng.integers(0, cfg.vocab_size, size=4)
@@ -1801,6 +1803,7 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
         sync(device)
         launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
         attn = {k: DK.LAUNCHES[k] - attn0[k] for k in DK.LAUNCHES}
+        eager = EAGER_CALLS["decode_attention"] - eager0
         split = {k: srv.phase_s[k] - phases.get(k, 0.0)
                  for k in srv.phase_s if srv.phase_s[k] - phases.get(k, 0.0)}
         print(f"[{label}] {policy:13s} TTFT(sim) {res.ttft_s:.6f} s, top-1 "
@@ -1808,19 +1811,15 @@ def serve_path(label, cfg, spcfg, n_tokens, policies, device, *, seed=0,
               f"{res.n_streamed}/computed {res.n_computed}, wall "
               f"{res.wall_s:.3f} s, launches {launched}", flush=True)
         steps = len(prompt) + max_new
-        print(f"[{label}] {policy:13s} decode attention: "
-              f"{res.attn_kernel_calls} kernel launches, "
-              f"{res.attn_eager_calls} eager calls for {steps} steps x "
-              f"{cfg.num_layers} layers; launches in the request {attn} "
-              "(the exact-cache comparison's decode included)", flush=True)
-        check(res.attn_kernel_calls == steps * cfg.num_layers
-              and res.attn_eager_calls == 0,
-              f"{policy}: decode attention took {res.attn_kernel_calls} "
-              f"kernel launches and {res.attn_eager_calls} eager calls, not "
-              f"{steps * cfg.num_layers} and 0")
-        check(attn["decode_attention_generic"] == 0
-              and attn["decode_attention"] >= res.attn_kernel_calls,
-              f"{policy}: decode attention launches {attn}")
+        print(f"[{label}] {policy:13s} decode attention: launches {attn}, "
+              f"{eager} eager calls for 2 x {steps} steps x "
+              f"{cfg.num_layers} layers (the request's decode and the "
+              "exact-cache comparison's)", flush=True)
+        check(attn["decode_attention"] == 2 * steps * cfg.num_layers
+              and attn["decode_attention_generic"] == 0 and eager == 0,
+              f"{policy}: decode attention took launches {attn} and "
+              f"{eager} eager calls, not {2 * steps * cfg.num_layers} fast "
+              "launches and 0")
         print(f"[{label}] {policy:13s} wall split: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in split.items()), flush=True)
         print(f"[{label}] {policy:13s} dequant phase "

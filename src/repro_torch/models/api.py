@@ -26,6 +26,10 @@
                                           planner's ModelConfig of the
                                           KV rows
   lay_out(tree, axes, rules)           -- DTensors laid out by logical axes
+
+Each family module owns its cache layout (``init_cache``, ``cache_axes``,
+``prefill_out_axes``, ``decode_cache``) and, where SparKV serves it,
+``kv_layers`` and ``plan_config``; the facade delegates to it.
 """
 from __future__ import annotations
 
@@ -94,72 +98,32 @@ class Model:
 
     def prefill_out_axes(self):
         """The logical axes of prefill's outputs (the reference's
-        launch/dryrun._prefill_out_axes): last-position logits, and the
-        cache leaves it returns."""
-        fam = self.cfg.family
-        ca = self.cache_axes()
-        logits = ("batch", "act_vocab")
-        if fam in ("dense", "moe"):
-            return (logits, {"k": ca["k"], "v": ca["v"]})
-        if fam == "hybrid_moe":
-            return (logits, {k: ca[k] for k in ("k", "v", "conv", "state")})
-        if fam == "ssm":
-            return (logits, ca)
-        if fam == "hybrid":
-            return (logits, {"ssm": ca["ssm"], "attn_k": ca["attn_k"],
-                             "attn_v": ca["attn_v"]})
-        if fam == "encdec":
-            return {"cross_k": ca["cross_k"], "cross_v": ca["cross_v"]}
-        raise ValueError(fam)
+        launch/dryrun._prefill_out_axes): last-position logits (not an
+        enc-dec's), and the cache leaves it returns."""
+        return self._mod.prefill_out_axes(self.cfg)
 
     def decode_cache(self, pre: dict, rules=None) -> dict:
         """The decode cache of a prefill's cache `pre`: its leaves, and
         zeroed buffers for what decode writes (the attention tails; the
-        enc-dec self-attention caches) in the dtype of the context K
-        (DTensors laid out by cache_axes under `rules` when `pre` holds
-        DTensors). The SSM state and conv window are prefill's own. The
-        tails are named ``tail_k``/``tail_v`` (dense, moe, hybrid_moe: a
-        row for each KV layer), ``attn_tail_k``/``attn_tail_v`` (hybrid:
-        one for each application of the shared block)."""
-        fam, cfg = self.cfg.family, self.cfg
-        if fam == "ssm":
-            return dict(pre)
-        ref = {"dense": "k", "moe": "k", "hybrid_moe": "k",
-               "hybrid": "attn_k", "encdec": "cross_k"}[fam]
-        lead, b = pre[ref].shape[:2]
-        hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-        if fam == "encdec":
-            names, n = ("self_k", "self_v"), cfg.dec_len
-        else:
-            names = (("tail_k", "tail_v") if fam != "hybrid"
-                     else ("attn_tail_k", "attn_tail_v"))
-            n = transformer.DECODE_TAIL
-        shape = (lead, b, n, hkv, hd)
-        like = pre[ref]
-        axes = self.cache_axes()
-        out = dict(pre)
-        for name in names:
-            if rules is not None and is_dtensor(like):
-                from torch.distributed.tensor import zeros
-                out[name] = zeros(shape, dtype=like.dtype,
-                                  device_mesh=rules.mesh,
-                                  placements=rules.placements(axes[name],
-                                                              shape))
-            else:
-                out[name] = torch.zeros(shape, dtype=like.dtype,
-                                        device=like.device)
-        return out
+        enc-dec self-attention caches) in the dtype and on the device of
+        the context K (DTensors laid out by cache_axes under `rules` when
+        `pre` holds DTensors). The SSM state and conv window are
+        prefill's own. Each family names and sizes its own buffers
+        (``init_cache`` allocates the same)."""
+        return self._mod.decode_cache(self.cfg, pre, rules)
 
     # ---- what SparKV's server stores and plans over ----
+    def _sparkv(self, name: str):
+        fn = getattr(self._mod, name, None)
+        if fn is None:
+            raise ValueError(f"SparKV serves dense, moe and hybrid_moe "
+                             f"models, not {self.cfg.family}")
+        return fn(self.cfg)
+
     def kv_layers(self) -> list:
         """The layers that hold K and V, in the order of the prefill
         cache's ``k``/``v`` rows and of the decode tails' rows."""
-        if self.cfg.family in ("dense", "moe"):
-            return list(range(self.cfg.num_layers))
-        if self.cfg.family == "hybrid_moe":
-            return granite_hybrid.kv_layers(self.cfg)
-        raise ValueError(f"SparKV serves dense, moe and hybrid_moe models, "
-                         f"not {self.cfg.family}")
+        return self._sparkv("kv_layers")
 
     def context_state(self, pre: dict) -> tuple:
         """A prefill's cache as (k, v, rest): K and V of the KV layers,
@@ -173,9 +137,7 @@ class Model:
         """The ModelConfig SparKV's planner plans the (token-chunk, layer)
         grid of the KV rows with: the model's own for a transformer, a
         MoE transformer of the attention layers for a hybrid_moe."""
-        if self.cfg.family == "hybrid_moe":
-            return granite_hybrid.plan_config(self.cfg)
-        return self.cfg
+        return self._sparkv("plan_config")
 
     # ---- abstract inputs for a dry run (meta tensors) ----
     def input_specs(self, shape: ShapeConfig) -> dict:

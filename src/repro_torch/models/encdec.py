@@ -157,6 +157,13 @@ def prefill(cfg, params, frames):
     return {"cross_k": ck, "cross_v": cv}
 
 
+def self_caches(cfg, rows: int, batch: int) -> dict:
+    """The leaves decode writes, ``{name: shape}``: the decoder's
+    self-attention K and V, dec_len slots in each of `rows` layers."""
+    return dict.fromkeys(("self_k", "self_v"), (
+        rows, batch, cfg.dec_len, cfg.num_kv_heads, cfg.resolved_head_dim))
+
+
 def init_cache(cfg, batch: int, enc_len: int, *, device,
                dtype=torch.bfloat16):
     nd, hkv, hd = cfg.dec_layers, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -164,8 +171,7 @@ def init_cache(cfg, batch: int, enc_len: int, *, device,
     return {
         "cross_k": z((nd, batch, enc_len, hkv, hd)),
         "cross_v": z((nd, batch, enc_len, hkv, hd)),
-        "self_k": z((nd, batch, cfg.dec_len, hkv, hd)),
-        "self_v": z((nd, batch, cfg.dec_len, hkv, hd)),
+        **{n: z(s) for n, s in self_caches(cfg, nd, batch).items()},
     }
 
 
@@ -173,6 +179,21 @@ def cache_axes(cfg):
     kv = ("layers", "batch", "kv_seq", "act_kv", None)
     sf = ("layers", "batch", None, "act_kv", None)
     return {"cross_k": kv, "cross_v": kv, "self_k": sf, "self_v": sf}
+
+
+def prefill_out_axes(cfg):
+    """The logical axes of prefill's outputs: the cross-attention K and V
+    (no logits)."""
+    ca = cache_axes(cfg)
+    return {"cross_k": ca["cross_k"], "cross_v": ca["cross_v"]}
+
+
+def decode_cache(cfg, pre: dict, rules) -> dict:
+    """A prefill's cross K and V and zeroed self-attention caches, in the
+    dtype of the cross K."""
+    nd, b = pre["cross_k"].shape[:2]
+    return L.with_zeros(pre, self_caches(cfg, nd, b), pre["cross_k"],
+                        cache_axes(cfg), rules)
 
 
 def decode_step(cfg, params, cache, token, pos: int):

@@ -196,8 +196,8 @@ def init_cache(cfg, batch: int, capacity: int, *, device,
     z = lambda s, dt=dtype: torch.zeros(s, dtype=dt, device=device)
     return {"k": z((n_a, batch, capacity, hkv, hd)),
             "v": z((n_a, batch, capacity, hkv, hd)),
-            "tail_k": z((n_a, batch, T.DECODE_TAIL, hkv, hd)),
-            "tail_v": z((n_a, batch, T.DECODE_TAIL, hkv, hd)),
+            **{n: z(s) for n, s in
+               T.tails(cfg, n_a, batch, T.TAILS).items()},
             "conv": z((n_m, batch, cfg.ssm.conv_width - 1,
                        ssm.conv_cache_channels(cfg))),
             "state": z((n_m, batch, h, p, n), torch.float32)}
@@ -207,6 +207,17 @@ def cache_axes(cfg):
     ax = T.cache_axes(cfg)
     return {**ax, "conv": ("layers", "batch", None, None),
             "state": ("layers", "batch", "ssm_heads", "ssm_pdim", "state")}
+
+
+def prefill_out_axes(cfg):
+    """The logical axes of prefill's outputs: the logits and the context
+    state."""
+    ca = cache_axes(cfg)
+    return L.LOGITS_AXES, {n: ca[n] for n in ("k", "v", "conv", "state")}
+
+
+# prefill's context state and the transformer's tails
+decode_cache = T.decode_cache
 
 
 def decode_step(cfg, params, cache, token, pos: int):

@@ -25,6 +25,10 @@ from repro_torch.models.layers import ParamDef
 from repro_torch.spans import span
 
 
+# the shared block's decode tails, one row an application
+TAILS = ("attn_tail_k", "attn_tail_v")
+
+
 def n_attn_apps(cfg) -> int:
     return cfg.num_layers // cfg.attn_every
 
@@ -123,13 +127,11 @@ def init_cache(cfg, batch: int, capacity: int, *, device,
                dtype=torch.bfloat16):
     g = n_attn_apps(cfg)
     kv = (g, batch, capacity, cfg.num_kv_heads, cfg.resolved_head_dim)
-    tail = (g, batch, T.DECODE_TAIL, cfg.num_kv_heads,
-            cfg.resolved_head_dim)
     z = lambda s: torch.zeros(s, dtype=dtype, device=device)
     return {"ssm": mamba_lm.init_cache(cfg, batch, device=device,
                                        dtype=dtype),
             "attn_k": z(kv), "attn_v": z(kv),
-            "attn_tail_k": z(tail), "attn_tail_v": z(tail)}
+            **{n: z(s) for n, s in T.tails(cfg, g, batch, TAILS).items()}}
 
 
 def cache_axes(cfg):
@@ -140,6 +142,21 @@ def cache_axes(cfg):
         "attn_k": kv, "attn_v": kv,
         "attn_tail_k": tl, "attn_tail_v": tl,
     }
+
+
+def prefill_out_axes(cfg):
+    """The logical axes of prefill's outputs: the logits, the SSM caches
+    and the attention applications' K and V."""
+    ca = cache_axes(cfg)
+    return L.LOGITS_AXES, {n: ca[n] for n in ("ssm", "attn_k", "attn_v")}
+
+
+def decode_cache(cfg, pre: dict, rules) -> dict:
+    """A prefill's cache `pre` and zeroed tails, one row an attention
+    application, in the dtype of the context K."""
+    g, b = pre["attn_k"].shape[:2]
+    return L.with_zeros(pre, T.tails(cfg, g, b, TAILS), pre["attn_k"],
+                        cache_axes(cfg), rules)
 
 
 def decode_step(cfg, params, cache, token, pos: int):

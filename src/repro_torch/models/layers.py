@@ -93,6 +93,33 @@ def init_params(defs, generator: torch.Generator, device):
     return _map_defs(one, defs)
 
 
+# ----------------------------------------------------------------------------
+# Caches
+# ----------------------------------------------------------------------------
+
+# the logical axes of prefill's last-position logits
+LOGITS_AXES = ("batch", "act_vocab")
+
+
+def with_zeros(pre: dict, shapes: dict, like, axes: dict, rules):
+    """`pre`'s leaves and a zeroed leaf of each ``{name: shape}`` of
+    `shapes`, in `like`'s dtype and on its device: DTensors laid out by
+    ``axes[name]`` under `rules` when `like` is a DTensor and `rules` is
+    not None. A family's ``decode_cache``: the leaves decode writes, beside
+    those prefill made."""
+    out = dict(pre)
+    for name, shape in shapes.items():
+        if rules is not None and spmd.is_dtensor(like):
+            from torch.distributed.tensor import zeros
+            out[name] = zeros(shape, dtype=like.dtype,
+                              device_mesh=rules.mesh,
+                              placements=rules.placements(axes[name], shape))
+        else:
+            out[name] = torch.zeros(shape, dtype=like.dtype,
+                                    device=like.device)
+    return out
+
+
 def norm_defs(cfg, d: int, prefix_shape=()) -> dict:
     ax = ("layers",) * len(prefix_shape) + ("embed",)
     defs = {"scale": ParamDef(prefix_shape + (d,), ax, init="zeros")}

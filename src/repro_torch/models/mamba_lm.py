@@ -92,6 +92,18 @@ def cache_axes(cfg):
     }
 
 
+def prefill_out_axes(cfg):
+    """The logical axes of prefill's outputs: the logits and the cache."""
+    return L.LOGITS_AXES, cache_axes(cfg)
+
+
+def decode_cache(cfg, pre: dict, rules) -> dict:
+    """Prefill's conv windows and states: decode writes no leaf of its
+    own."""
+    del cfg, rules
+    return dict(pre)
+
+
 def decode_layers(cfg, blocks, x, conv, state, layers):
     """Decode the Mamba2 layers `layers` over x (b, 1, d) from the cache
     stacks; `blocks` are the per-layer params (``T.unstack``). Returns x

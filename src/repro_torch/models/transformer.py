@@ -25,6 +25,8 @@ from repro_torch.spans import span
 # capacity of the decode tail buffer (newly generated tokens); the
 # context cache stays read-only, as in the reference
 DECODE_TAIL = 128
+# the decode cache's leaves of the newly decoded tokens' K and V
+TAILS = ("tail_k", "tail_v")
 
 # decode attentions that took the eager path (flash_attention over the
 # context and the tail, then merge_attention); the kernel's launches are
@@ -253,23 +255,55 @@ def prefill(cfg, params, tokens):
     return logits, {"k": kvs[0], "v": kvs[1]}
 
 
+def tails(cfg, rows: int, batch: int, names: tuple) -> dict:
+    """The leaves decode writes, ``{name: shape}`` for each of `names`:
+    the K and V of the newly decoded tokens, DECODE_TAIL slots in each of
+    `rows` (one a KV layer; a hybrid's, one an application of its shared
+    block)."""
+    return dict.fromkeys(names, (rows, batch, DECODE_TAIL, cfg.num_kv_heads,
+                                 cfg.resolved_head_dim))
+
+
 def init_cache(cfg, batch: int, capacity: int, *, device,
                dtype=torch.bfloat16):
     """capacity = context length (read-only); newly decoded tokens live in
     the DECODE_TAIL buffer."""
     shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    tail = (cfg.num_layers, batch, DECODE_TAIL, cfg.num_kv_heads,
-            cfg.resolved_head_dim)
     z = lambda s: torch.zeros(s, dtype=dtype, device=device)
-    return {"k": z(shape), "v": z(shape), "tail_k": z(tail),
-            "tail_v": z(tail)}
+    return {"k": z(shape), "v": z(shape),
+            **{n: z(s) for n, s in
+               tails(cfg, cfg.num_layers, batch, TAILS).items()}}
 
 
 def cache_axes(cfg):
     ax = ("layers", "batch", "kv_seq", "act_kv", None)
     tl = ("layers", "batch", None, "act_kv", None)
     return {"k": ax, "v": ax, "tail_k": tl, "tail_v": tl}
+
+
+def prefill_out_axes(cfg):
+    """The logical axes of prefill's outputs: the logits, K and V."""
+    ca = cache_axes(cfg)
+    return L.LOGITS_AXES, {"k": ca["k"], "v": ca["v"]}
+
+
+def decode_cache(cfg, pre: dict, rules) -> dict:
+    """A prefill's cache `pre` (``k``, ``v`` and whatever else the family
+    keeps) and zeroed tails, in the dtype of the context K."""
+    rows, b = pre["k"].shape[:2]
+    return L.with_zeros(pre, tails(cfg, rows, b, TAILS), pre["k"],
+                        cache_axes(cfg), rules)
+
+
+def kv_layers(cfg) -> list:
+    """The layers that hold K and V: every one."""
+    return list(range(cfg.num_layers))
+
+
+def plan_config(cfg):
+    """What SparKV's planner plans over: the model itself."""
+    return cfg
 
 
 def decode_embed(params, token):

@@ -57,14 +57,11 @@ from repro_torch.compression.quantize import quantize
 from repro_torch.configs.base import SparKVConfig
 from repro_torch.core import baselines as B
 from repro_torch.core.chunks import Chunk
-from repro_torch.core.costs import NETWORKS, PROFILES
-from repro_torch.core.predictor import LatencyPredictor
+from repro_torch.core.costs import NETWORKS
 from repro_torch.data.workloads import WorkloadChunks
-from repro_torch.device import resolve
-from repro_torch.kernels.decode_attn import kernel as decode_kernel
+from repro_torch.device import named, resolve
 from repro_torch.kernels.huffman_decode.ops import decode as huffman_decode
 from repro_torch.kernels.kv_dequant.ops import dequantize_into
-from repro_torch.models import transformer
 from repro_torch.models.api import Model
 from repro_torch.spans import span
 
@@ -97,10 +94,6 @@ class ServeResult:
     migrations: int
     wall_s: float
     state_bytes: int = 0               # recurrent state restored (rest)
-    # the request's decode attentions (``_decode``, not the exact-cache
-    # comparison): flash-decode kernel launches, eager-path calls
-    attn_kernel_calls: int = 0
-    attn_eager_calls: int = 0
 
 
 class SparKVServer:
@@ -242,16 +235,11 @@ class SparKVServer:
 
     # ---------------- edge side ----------------
     def _ensure_predictor(self) -> None:
-        """Train the planner's latency MLP on this server's device, as
-        ``baselines._predictor_cache`` would on first use (same samples
-        and epochs), so a CPU server never builds one for the card."""
-        cfg = self.model.plan_config()
-        key = (cfg.name, self.profile)
-        if key not in B._PRED_CACHE:
-            p = LatencyPredictor(cfg, PROFILES[self.profile],
-                                 device=self.device)
-            p.fit(4000, epochs=150)
-            B._PRED_CACHE[key] = p
+        """Train the planner's latency MLP on first use through
+        ``baselines._predictor_cache``, with this server's device named,
+        so a CPU server never builds one for the card."""
+        with named(self.device):
+            B._predictor_cache(self.model.plan_config(), self.profile)
 
     def load_context(self, cid: int, *, policy: str = "sparkv",
                      util: Optional[float] = None, seed: Optional[int] = None):
@@ -313,10 +301,7 @@ class SparKVServer:
             with span("generate", into=self.phase_s):
                 st = self.contexts[cid]
                 cache, res = self.load_context(cid, policy=policy, seed=seed)
-                calls0 = _attn_calls()
                 toks, logits_seq = self._decode(st, cache, prompt, max_new)
-                n_kernel, n_eager = (a - b for a, b in zip(_attn_calls(),
-                                                           calls0))
                 if compare_exact:
                     exact_cache = {"k": st.exact_k.to(torch.bfloat16),
                                    "v": st.exact_v.to(torch.bfloat16),
@@ -334,8 +319,7 @@ class SparKVServer:
                 top1_agreement=agree, mean_kl=kl,
                 n_streamed=eng.n_streamed, n_computed=eng.n_computed,
                 migrations=getattr(eng, "n_migrations", 0),
-                wall_s=time.time() - t_wall, state_bytes=st.rest_bytes(),
-                attn_kernel_calls=n_kernel, attn_eager_calls=n_eager)
+                wall_s=time.time() - t_wall, state_bytes=st.rest_bytes())
         finally:
             self.active_requests -= 1
 
@@ -413,12 +397,6 @@ class SparKVServer:
                 out_toks = torch.cat(toks[n:]).cpu().numpy()
                 out_logits = [lf.cpu().numpy() for lf in logits_list[n:]]
         return out_toks, out_logits
-
-
-def _attn_calls() -> tuple[int, int]:
-    """(flash-decode kernel launches, eager decode attentions) so far."""
-    return (sum(decode_kernel.LAUNCHES.values()),
-            transformer.EAGER_CALLS["decode_attention"])
 
 
 def _kl(p_logits: np.ndarray, q_logits: np.ndarray) -> float:

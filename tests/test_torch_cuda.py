@@ -793,7 +793,8 @@ def test_decode_one_cache_cut_in_two_is_bit_equal(cuda, hq, hkv, d, cut,
 def _served(cfg, cuda, *, eager=False, monkeypatch=None):
     """A context registered on a card server and one local_prefill request
     (4 prompt tokens, 8 new), with the decode attention's eager path
-    forced where `eager`."""
+    forced where `eager`: its result, and its decode attentions' kernel
+    launches and eager calls."""
     from repro_torch.models import transformer as T
     spcfg = SparKVConfig(chunk_tokens=32, q_block=16, kv_block=16,
                          quant_group=32)
@@ -805,10 +806,13 @@ def _served(cfg, cuda, *, eager=False, monkeypatch=None):
     if eager:
         monkeypatch.setattr(T, "_kernel_path", lambda *a: False)
     c0 = DO.COPIES["decode_attention"]
+    calls = lambda: (sum(DK.LAUNCHES.values()),
+                     T.EAGER_CALLS["decode_attention"])
+    n0 = calls()
     res = srv.generate(cid, np.arange(4), max_new=8, policy="local_prefill",
                        compare_exact=False)
     assert DO.COPIES["decode_attention"] == c0
-    return res
+    return (res, *(a - b for a, b in zip(calls(), n0)))
 
 
 @pytest.mark.parametrize("arch,kw", [
@@ -817,18 +821,19 @@ def _served(cfg, cuda, *, eager=False, monkeypatch=None):
 def test_served_decode_attends_through_the_kernel(cuda, arch, kw,
                                                   monkeypatch):
     """A card server's decode attends through the flash-decode kernel: one
-    fast-kernel launch a layer a step (attn_kernel_calls = steps x
-    layers, no eager call), no copy of the cache's context or tail on the
-    way (COPIES), and the tokens the eager path decodes."""
+    fast-kernel launch a layer a step (kernel launches = steps x layers,
+    no eager call), no copy of the cache's context or tail on the way
+    (COPIES), and the tokens the eager path decodes."""
     cfg = get_smoke(arch, layers=2, d_ff=128, vocab=256, **kw)
     g0 = DK.LAUNCHES["decode_attention_generic"]
-    res = _served(cfg, cuda)
+    res, n_kernel, n_eager = _served(cfg, cuda)
     assert DK.LAUNCHES["decode_attention_generic"] == g0
-    assert res.attn_kernel_calls == (4 + 8) * cfg.num_layers
-    assert res.attn_eager_calls == 0
-    eager = _served(cfg, cuda, eager=True, monkeypatch=monkeypatch)
-    assert eager.attn_kernel_calls == 0
-    assert eager.attn_eager_calls == (4 + 8) * cfg.num_layers
+    assert n_kernel == (4 + 8) * cfg.num_layers
+    assert n_eager == 0
+    eager, n_kernel, n_eager = _served(cfg, cuda, eager=True,
+                                       monkeypatch=monkeypatch)
+    assert n_kernel == 0
+    assert n_eager == (4 + 8) * cfg.num_layers
     assert np.array_equal(res.tokens, eager.tokens)
 
 

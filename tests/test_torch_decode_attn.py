@@ -379,9 +379,9 @@ def test_kernel_route_on_cpu_matches_eager(tail_pos, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["sparkv-qwen3-4b", "granite-moe-3b-a800m"])
 def test_served_request_counts_its_decode_attentions(arch):
-    """ServeResult's counters on a CPU server: one eager call a layer a
-    step of the request's decode (prompt + new tokens), none for the
-    exact-cache comparison, and no kernel launch."""
+    """A CPU server's request: one eager decode attention a layer a step
+    of its decode (prompt + new tokens), and no kernel launch, read from
+    the route's counters around ``generate``."""
     cfg = get_smoke(arch, layers=2, d_model=64, heads=4, d_ff=128, vocab=256)
     model = build_model(cfg)
     srv = SparKVServer(model, model.init(0, device="cpu"),
@@ -390,6 +390,8 @@ def test_served_request_counts_its_decode_attentions(arch):
                        chunk_tokens=32, device="cpu")
     cid = srv.register_context(
         np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, 64)))
-    res = srv.generate(cid, np.arange(5), max_new=6, policy="local_prefill")
-    assert res.attn_eager_calls == (5 + 6) * cfg.num_layers
-    assert res.attn_kernel_calls == 0
+    e0, k0 = TT.EAGER_CALLS["decode_attention"], sum(TK.LAUNCHES.values())
+    srv.generate(cid, np.arange(5), max_new=6, policy="local_prefill",
+                 compare_exact=False)
+    assert TT.EAGER_CALLS["decode_attention"] - e0 == (5 + 6) * cfg.num_layers
+    assert sum(TK.LAUNCHES.values()) == k0
