@@ -24,7 +24,12 @@ Phases, in order; any failure exits non-zero:
      in one launch, timed beside the decoder on the host and its bounds
      (bytes, and one table lookup a symbol: the longest stream's symbols
      times a dependent read of the same shared-memory table, measured by
-     a pointer chase in 64 lanes a block, as the chunk's streams read it);
+     a pointer chase in 64 lanes a block, as the chunk's streams read it).
+     The routed-experts kernel (moe_decode) at the Granite-4.0-H and
+     Granite-3.0 cells' MoE widths, one bf16 token, every expert seeded:
+     against its plain version and moe_block_local run eagerly (four bf16
+     steps of the largest output), timed (median of 50, L2 flushed)
+     beside its bytes bound, the plain version and the eager dispatch;
   3. path A: sparkv-qwen3-4b at full width and depth, random weights from
      a seed; one 2048-token context (1024-token chunks, 72 KV chunks);
      two requests (sparkv, local_prefill), 8 new tokens each, the
@@ -102,8 +107,10 @@ Phases, in order; any failure exits non-zero:
      requests sparkv and local_prefill, 8 new tokens each: the streaming
      request in exactly one kv_dequant launch, its assembled fp32 cache
      bit-equal to the plain dequant of the same stored chunks,
-     local_prefill top-1 1.0; then the MoE layers' capacity drop rate
-     over the context's prefill;
+     local_prefill top-1 1.0; every decode step's MoE layers through the
+     routed-experts kernel (moe_decode launches = the decode attention's:
+     one a layer a step), the prefills through the eager dispatch; then
+     the MoE layers' capacity drop rate over the context's prefill;
 12. path G: mamba2-130m (SSM) and zamba2-2.7b (hybrid) at full width and
      depth, random bf16 weights from a seed: a 2048-token prefill and 8
      decode steps each, timed with CUDA events; the first step's logits
@@ -242,6 +249,10 @@ KERNELS = {
         "route": "cuda", "source": "src/repro_torch/csrc/huffman_decode.cu",
         "replaces": "none: the reference decodes on the host "
                     "(src/repro/compression/huffman.py, decode)"},
+    "moe_decode": {
+        "route": "cuda", "source": "src/repro_torch/csrc/moe_decode.cu",
+        "replaces": "none: the reference's MoE is XLA's "
+                    "(src/repro/models/layers.py, moe_block_local)"},
 }
 SOURCES = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
                   for k in KERNELS.values()})
@@ -714,6 +725,79 @@ def huffman_phase(device):
             "library_ms": None, "bytes_bound_ms": bytes_ms,
             "chain_bound_ms": chain_ms, "lookup_ns": read_ns,
             "lookup_cycles": read_cycles, "request_ms": request_ms}
+
+
+# (label, d, f, e, k, capacity factor): the benchmark's Granite-4.0-H and
+# Granite-3.0 cells' MoE widths
+MOE_WIDTHS = (("granite-4.0-h", 4096, 768, 72, 10, 7.2),
+              ("granite-3.0", 1536, 512, 40, 8, 1.25))
+
+
+def moe_phase(device):
+    """The routed-experts kernel at the cells' MoE widths, one bf16 token
+    (a decode step's shape), every expert's weights seeded: against its
+    plain version and moe_block_local run eagerly, then timed (median of
+    50, L2 flushed: Granite-3.0's 37.7 MB of routed weights fit in the 50
+    MB L2) beside its bytes bound, the plain version and the eager
+    dispatch it replaces. Returns each width's row."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels.moe_decode import kernel as MK
+    from repro_torch.models import layers as L
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    rows = {}
+    for label, d, f, e, k, cf in MOE_WIDTHS:
+        gen = torch.Generator(device=device).manual_seed(0)
+        draw = lambda *s: (torch.randn(s, generator=gen, device=device)
+                           * 0.02).to(torch.bfloat16)
+        p = {"router": draw(d, e), "w_up": draw(e, d, f),
+             "w_gate": draw(e, d, f), "w_down": draw(e, f, d)}
+        x = torch.randn((1, 1, d), generator=gen, device=device).to(
+            torch.bfloat16)
+        cfg = get_smoke("granite-moe-3b-a800m", d_model=d, d_ff=f)
+        cfg = dc.replace(cfg, moe=MoEConfig(num_experts=e,
+                                            experts_per_token=k,
+                                            capacity_factor=cf))
+        args = (p["router"], p["w_gate"], p["w_up"], p["w_down"], k)
+        n0 = MK.LAUNCHES["moe_decode"]
+        y, aux = MK.moe_decode(x, *args)
+        check(MK.LAUNCHES["moe_decode"] == n0 + 1,
+              f"moe_decode {label}: not one launch")
+        py, paux = MK.moe_decode_plain(x, *args)
+        ey, eaux = L.moe_block_local(cfg, p, x)
+        torch.cuda.synchronize()
+        top = float(ey.float().abs().max())
+        err, eerr = _max_err(y, py), _max_err(y, ey)
+        print(f"[moe_decode] {label} d {d} f {f} top {k} of {e}: max |err| "
+              f"{err:.6g} against plain, {eerr:.6g} against the eager "
+              f"dispatch (largest |y| {top:.6g}); aux {float(aux):.7f}, "
+              f"plain {float(paux):.7f}, eager {float(eaux):.7f}",
+              flush=True)
+        check(bool(torch.isfinite(y.float()).all())
+              and max(err, eerr) <= 2.0 ** -6 * top
+              and abs(float(aux) - float(eaux)) <= 1e-3,
+              f"moe_decode {label}: beyond four bf16 steps of the plain "
+              "version or the eager dispatch")
+        ms = time_ms(lambda: MK.moe_decode(x, *args), flush)
+        plain_ms = time_ms(lambda: MK.moe_decode_plain(x, *args), flush)
+        eager_ms = time_ms(lambda: L.moe_block_local(cfg, p, x), flush)
+        # the routed experts' rows and the router, read once; x and y
+        nbytes = 2 * (3 * k * d * f + d * e + 2 * d)
+        row = _perf(max(err, eerr), ms, plain_ms, eager_ms, nbytes,
+                    2 * (3 * k * d * f + d * e), BF16_FLOPS)
+        print(f"[moe_decode] {label}: card {ms:.6f} ms, bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}, "
+              f"{100 * row['bound_ms'] / ms:.1f}%), plain {plain_ms:.6f} ms,"
+              f" eager dispatch {eager_ms:.6f} ms "
+              f"({eager_ms / ms:.2f}x the kernel)", flush=True)
+        rows[label] = row
+        del p
+        free_card()
+    return rows
 
 
 def _max_err(a, b):
@@ -2241,13 +2325,26 @@ def path_f(cfg, spcfg, device, *, n_tokens=2048):
     local_prefill; returns the kv_dequant and decode-attention launches
     during the path's requests and the largest error of its assembled cache against the
     plain dequant."""
+    from repro_torch.kernels.moe_decode import kernel as MK
     kept, err = {}, 0.0
     launches = {"kv_dequant": 0, "kv_dequant_mixed": 0,
-                "decode_attention": 0}
+                "decode_attention": 0, "moe_decode": 0}
+    moe0 = MK.LAUNCHES["moe_decode"]
     for policy, res, launched, widths, attn in serve_path(
             "path F", cfg, spcfg, n_tokens, ("sparkv", "local_prefill"),
             device, keep=kept):
         launches["decode_attention"] += attn
+        # every decode step's MoE layers through the routed-experts
+        # kernel, the request's and the exact-cache comparison's (as the
+        # decode attention); the prefills keep the eager dispatch
+        moe, moe0 = MK.LAUNCHES["moe_decode"] - moe0, MK.LAUNCHES[
+            "moe_decode"]
+        print(f"[path F] {policy:13s} moe_decode launches {moe} for 2 x "
+              f"{attn // (2 * cfg.num_layers)} steps x {cfg.num_layers} "
+              "layers", flush=True)
+        check(moe == attn, f"path F {policy}: {moe} moe_decode launches, "
+              f"not one a MoE layer a decode step ({attn})")
+        launches["moe_decode"] += moe
         want = 1 if res.n_streamed else 0
         check(launched == {"kv_dequant": want, "kv_dequant_mixed": 0},
               f"path F {policy}: dequant launches {launched}, not {want} "
@@ -3235,6 +3332,9 @@ def main():
         print("[kernels] against their plain versions on the card")
         perf = kernel_phase(device)
         perf["huffman_decode"] = huffman_phase(device)
+        moe_rows = moe_phase(device)
+        perf["moe_decode"] = moe_rows["granite-4.0-h"]
+        print(f"[moe_decode] rows {json.dumps(moe_rows)}", flush=True)
         att_err = attention_phase(device)
         from repro_torch.kernels.huffman_decode import kernel as HK
         decoded = HK.LAUNCHES["huffman_decode"]

@@ -12,7 +12,9 @@ on a ``DeviceMesh``; ``constrain`` sits where the reference's
 ``with_sharding_constraint`` does and is the identity without rules.
 ``moe_block`` sends to ``moe_block_sharded`` (the reference's shard_map
 dispatch, here explicit collectives on the mesh) when the rules' mesh
-has more than one device.
+has more than one device, and a decode-sized step on the card to the
+routed-experts kernel (``kernels/moe_decode``) where ``decode_route``
+holds.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import constrain
+from repro_torch.kernels.moe_decode import ops as MO
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -505,16 +508,41 @@ def moe_capacity(cfg, n_tokens: int) -> int:
     return max(4, -(-cap // 4) * 4)
 
 
+def decode_route(device: str, dtensor: bool, grad: bool, t: int, k: int,
+                 e: int, cap: int) -> bool:
+    """Whether t tokens routed to k of e experts take the routed-experts
+    kernel: on the card (`device` "cuda"), no DTensor, no autograd, and
+    nothing the capacity could drop (an expert receives at most t
+    assignments, since a token's k experts are distinct, so t <= cap)
+    with the routed experts no more than all of them (t * k <= e)."""
+    return (device == "cuda" and not dtensor and not grad and t <= cap
+            and t * k <= e)
+
+
 def moe_block(cfg, p, x):
     """x: (b, s, d) -> (y, aux_loss).
 
     Sends to the two-stage sharded dispatch when a rules context is
     active and its mesh has more than one device, as the reference does;
-    otherwise the single-device sort-based dispatch."""
+    a decode-sized step on the card (``decode_route``) to the
+    routed-experts kernel, which computes ``moe_block_local``'s function
+    from the routed experts alone; otherwise the single-device sort-based
+    dispatch."""
     from repro_torch.distributed.sharding import current_rules
     rules = current_rules()
     if rules is not None and rules.n_devices > 1:
         return moe_block_sharded(cfg, p, x, rules)
+    ws = (x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    t = x.numel() // x.shape[-1]
+    mo = cfg.moe
+    if decode_route(x.device.type, any(spmd.is_dtensor(w) for w in ws),
+                    torch.is_grad_enabled()
+                    and any(w.requires_grad for w in ws),
+                    t, mo.experts_per_token, mo.num_experts,
+                    moe_capacity(cfg, t)):
+        return MO.moe_decode(x, p["router"], p["w_gate"], p["w_up"],
+                             p["w_down"], mo.experts_per_token,
+                             cfg.activation)
     return moe_block_local(cfg, p, x)
 
 

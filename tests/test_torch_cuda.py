@@ -25,6 +25,7 @@ from repro_torch.kernels.huffman_decode import kernel as HK  # noqa: E402
 from repro_torch.kernels.huffman_decode import ops as HO  # noqa: E402
 from repro_torch.kernels.kv_dequant import kernel as K  # noqa: E402
 from repro_torch.kernels.kv_dequant import ops as KO  # noqa: E402
+from repro_torch.kernels.moe_decode import kernel as MK  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import SparKVServer  # noqa: E402
 from torch_huffman_cases import HUFFMAN_CASES, huffman_symbols  # noqa: E402
@@ -835,6 +836,163 @@ def test_served_decode_attends_through_the_kernel(cuda, arch, kw,
     assert n_kernel == 0
     assert n_eager == (4 + 8) * cfg.num_layers
     assert np.array_equal(res.tokens, eager.tokens)
+
+
+# ---------------------------------------------------------------------------
+# Routed experts of a decode-sized MoE step
+# ---------------------------------------------------------------------------
+
+# (d, f, e, k, capacity_factor) of the benchmark's Granite-3.0 and
+# Granite-4.0-H cells, and the route's largest t at each
+MOE_CELLS = {"granite-3.0": ((1536, 512, 40, 8, 1.25), 4),
+             "granite-4.0-h": ((4096, 768, 72, 10, 7.2), 7)}
+
+
+def _moe_cfg(d, f, e, k, cf, activation="swiglu"):
+    from repro_torch.configs.base import MoEConfig
+    cfg = get_smoke("granite-moe-3b-a800m", d_model=d, d_ff=f)
+    return dataclasses.replace(cfg, activation=activation, moe=MoEConfig(
+        num_experts=e, experts_per_token=k, capacity_factor=cf))
+
+
+def _moe_params(d, f, e, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda *s: (torch.randn(s, generator=gen, device=device)
+                       * 0.02).to(dtype)
+    return {"router": draw(d, e), "w_up": draw(e, d, f),
+            "w_gate": draw(e, d, f), "w_down": draw(e, f, d)}
+
+
+def _moe_close(out, ref, dtype):
+    """Within four steps of the dtype at the reference's largest magnitude
+    (fp32: 1e-5 of it). The kernel sums each dot product in another order
+    than cuBLAS, so a rounding of a gate, up, product or expert output may
+    move by a step, and a router logit's rounding may move a gate by a
+    step of its own, which reaches y through the renormalisation."""
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6,
+           torch.float16: 2.0 ** -9}[dtype]
+    top = float(ref.float().abs().max())
+    return float((out.float() - ref.float()).abs().max()) <= tol * top
+
+
+@pytest.mark.parametrize("t", [1, 2, "limit"])
+@pytest.mark.parametrize("cell", list(MOE_CELLS))
+def test_moe_decode_matches_plain_and_eager(cuda, cell, t):
+    """bf16 on the card at the cells' widths, every expert: the kernel (one
+    launch a call) against the plain version and moe_block_local run
+    eagerly; the aux loss within 1e-3 (a router logit rounded one step
+    apart moves a probability by ~1%, the loss by ~1e-4)."""
+    from repro_torch.models import layers as L
+    (d, f, e, k, cf), limit = MOE_CELLS[cell]
+    t = limit if t == "limit" else t
+    cfg = _moe_cfg(d, f, e, k, cf)
+    p = _moe_params(d, f, e, torch.bfloat16, cuda, seed=t)
+    x = _randn(torch.Generator(device=cuda).manual_seed(50 + t), (1, t, d),
+               torch.bfloat16, cuda)
+    args = (p["router"], p["w_gate"], p["w_up"], p["w_down"], k)
+    (y, aux), n = _launched(MK.LAUNCHES, lambda: MK.moe_decode(x, *args))
+    assert n == {"moe_decode": 1}
+    py, paux = MK.moe_decode_plain(x, *args)
+    ey, eaux = L.moe_block_local(cfg, p, x)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and y.dtype == x.dtype and aux.dim() == 0
+    assert _moe_close(y, py, torch.bfloat16)
+    assert _moe_close(y, ey, torch.bfloat16)
+    assert abs(float(aux) - float(eaux)) <= 1e-3
+    assert abs(float(paux) - float(eaux)) <= 1e-6
+    # the same bits every run: no atomics
+    assert torch.equal(MK.moe_decode(x, *args)[0], y)
+
+
+@pytest.mark.parametrize("dtype,activation", [
+    (torch.float32, "swiglu"), (torch.float16, "swiglu"),
+    (torch.bfloat16, "geglu")])
+def test_moe_decode_other_dtypes_and_activation(cuda, dtype, activation):
+    """fp32 and fp16 at the smoke width and 3 tokens, and GeGLU in bf16,
+    against the plain version (fp32 with TF32 off)."""
+    d, f, e, k = 64, 128, 8, 2
+    p = _moe_params(d, f, e, dtype, cuda, seed=9)
+    x = _randn(torch.Generator(device=cuda).manual_seed(9), (3, d), dtype,
+               cuda)
+    args = (p["router"], p["w_gate"], p["w_up"], p["w_down"], k, activation)
+    y, aux = MK.moe_decode(x, *args)
+    py, paux = MK.moe_decode_plain(x, *args)
+    torch.cuda.synchronize()
+    assert _moe_close(y, py, dtype)
+    assert abs(float(aux) - float(paux)) <= 1e-3
+
+
+def test_moe_decode_router_ties_go_to_the_lower_expert(cuda):
+    """Equal router columns on the card: the kernel picks the lowest ids
+    among them, as the plain version's stable sort does (equal y)."""
+    d, f, e, k = 64, 128, 16, 4
+    p = _moe_params(d, f, e, torch.bfloat16, cuda, seed=1)
+    p["router"][:, [3, 6, 9, 12, 15]] = p["router"][:, 12:13] + 0.5
+    x = torch.ones((2, d), dtype=torch.bfloat16, device=cuda)
+    args = (p["router"], p["w_gate"], p["w_up"], p["w_down"], k)
+    y, _ = MK.moe_decode(x, *args)
+    py, _ = MK.moe_decode_plain(x, *args)
+    torch.cuda.synchronize()
+    assert MK.route_plain(x, p["router"], k)[1].tolist() == [[3, 6, 9, 12]] * 2
+    assert _moe_close(y, py, torch.bfloat16)
+
+
+def _moe_served(model, cuda):
+    """One local_prefill request (4 prompt tokens, 8 new) on a card
+    server: its result and the moe_decode launches during it."""
+    spcfg = SparKVConfig(chunk_tokens=32, q_block=16, kv_block=16,
+                         quant_group=32)
+    srv = SparKVServer(model, model.init(0, device=cuda), spcfg,
+                       chunk_tokens=32, device=cuda)
+    cid = srv.register_context(
+        np.random.default_rng(0).integers(0, 256, size=(1, 96)))
+    n0 = MK.LAUNCHES["moe_decode"]
+    res = srv.generate(cid, np.arange(4), max_new=8, policy="local_prefill",
+                       compare_exact=False)
+    return res, MK.LAUNCHES["moe_decode"] - n0
+
+
+def _tiny_hybrid():
+    from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
+    from repro_torch.models.granite_hybrid import GraniteHybridConfig
+    base = ModelConfig(
+        name="tiny-granite-4.0-h", family="hybrid_moe", num_layers=10,
+        d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=32,
+        vocab_size=256, activation="swiglu", norm="rmsnorm",
+        tie_embeddings=True,
+        moe=MoEConfig(num_experts=8, experts_per_token=2,
+                      capacity_factor=4.0),
+        ssm=SSMConfig(state_dim=16, head_dim=16, expand=2, chunk_len=16,
+                      conv_width=4))
+    return GraniteHybridConfig(
+        base=base, layer_types=("mamba",) * 5 + ("attention",)
+        + ("mamba",) * 4, shared_d_ff=48, embedding_multiplier=12.0,
+        attention_multiplier=0.0625, residual_multiplier=0.22,
+        logits_scaling=16.0)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "granite-4.0-h",
+                                  "sparkv-qwen3-4b"])
+def test_served_moe_decode_takes_the_kernel(cuda, arch, monkeypatch):
+    """A card server's decode step routes every MoE layer through the
+    kernel: launches = MoE layers x decode steps (4 + 8); the prefills
+    (96 tokens) keep the eager dispatch; a dense model launches none. The
+    Granite-3.0 request decodes the tokens the eager dispatch decodes."""
+    from repro_torch.models import layers as L
+    if arch == "granite-4.0-h":
+        cfg = _tiny_hybrid()
+    else:
+        cfg = get_smoke(arch, layers=2, d_ff=128, vocab=256,
+                        d_model=384, heads=6, kv_heads=2)
+    model = build_model(cfg)
+    res, n = _moe_served(model, cuda)
+    moe_layers = cfg.num_layers if cfg.moe is not None else 0
+    assert n == (4 + 8) * moe_layers
+    if arch == "granite-moe-3b-a800m":
+        monkeypatch.setattr(L, "decode_route", lambda *a: False)
+        eager, n = _moe_served(model, cuda)
+        assert n == 0
+        assert np.array_equal(res.tokens, eager.tokens)
 
 
 def test_grids_past_65535(cuda):
